@@ -2,6 +2,7 @@
 
 It mirrors the JAX package ``repro`` module for module and imports neither
 JAX nor ``repro``. Entry points run on the card unless the caller passes
-``device="cpu"``; on the card the tiled scan runs a hand-written Hopper
-kernel (``kernels/csrc``), on the CPU its plain PyTorch version.
+``device="cpu"``. On the card the detection pass's tiled scan and the LM
+prefill's attention run hand-written Hopper kernels (``kernels/csrc``); on
+the CPU they run the kernels' plain PyTorch versions.
 """

@@ -12,8 +12,18 @@
                            package's ``ops.copyscore_tile_fused``, on the same
                            dispatch.
 
-``tile_scores.launches`` counts the kernel launches of this process (a plain
-integer; a caller resets it to 0 to count a run).
+``flash_attention_fwd``  — attention forward (o, lse) with causal masking,
+                           a sliding window and GQA: a CPU tensor takes the
+                           plain version (``ref.flash_attention_fwd_torch``);
+                           a CUDA tensor launches the hand-written Hopper
+                           kernel (``csrc/flash_attention_fwd.cu``) or raises.
+``flash_attention``      — the model's attention: ``impl="kernel"`` is
+                           ``flash_attention_fwd``'s o, ``impl="reference"``
+                           the plain ``ref.attention_ref``.
+
+``tile_scores.launches`` and ``flash_attention_fwd.launches`` count the
+kernel launches of this process (plain integers; a caller resets one to 0
+to count a run).
 """
 from __future__ import annotations
 
@@ -150,4 +160,122 @@ def copyscore_tile_fused(v_rows, v_cols, p_blk, acc_rows, acc_cols, *,
     return tuple(st[0] for st in stacks)
 
 
-__all__ = ["copyscore_tile_fused", "tile_scores"]
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FLASH_HEAD_DIMS = (64, 128)
+_MAX_GRID_Y = 65535
+
+
+def _flash_lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention_fwd")
+    fn = lib.flash_attention_fwd_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _check_qkv(q, k, v, window) -> None:
+    """Raise on any operand the kernel does not take."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D (B, H, S, D), got "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in _FLASH_DTYPES or t.dtype != q.dtype:
+            raise ValueError(f"q, k, v must share one dtype of float32 or "
+                             f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    B, Hq, _, D = q.shape
+    if tuple(k.shape) != tuple(v.shape) or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"k and v must be (B, Hkv, Sk, D) like q's B and D, "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    if k.shape[1] < 1 or Hq % k.shape[1]:
+        raise ValueError(f"Hq={Hq} must be a multiple of Hkv={k.shape[1]}")
+    if D not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"head_dim must be one of {_FLASH_HEAD_DIMS}, got {D}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1 or None, got {window}")
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, sm_scale=None, window=None):
+    """Attention forward: (o in q's dtype, lse (B, Hq, Sq) float32).
+
+    q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D), contiguous, one dtype (float32 or
+    bfloat16), D ∈ {64, 128}, Hq a multiple of Hkv (kv head = q head //
+    group). Key j is visible from query i iff (not causal or j ≤ i) and
+    (window is None or i − j < window); any Sq and Sk. A CPU tensor takes
+    ``ref.flash_attention_fwd_torch``; a CUDA tensor launches the kernel.
+    The kernel has no backward yet: a CUDA call that would need a gradient
+    raises.
+    """
+    _check_qkv(q, k, v, window)
+    if q.device.type == "cpu":
+        return kref.flash_attention_fwd_torch(q, k, v, causal=causal,
+                                              sm_scale=sm_scale, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_fwd runs on cpu or cuda, not "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise NotImplementedError(
+            "the flash-attention kernel has no backward yet (ROADMAP B5)")
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if B * Hq > _MAX_GRID_Y:
+        raise ValueError(f"B*Hq = {B * Hq} exceeds the grid's {_MAX_GRID_Y}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
+    o = torch.empty_like(q)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if q.numel() == 0:
+        return o, lse
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    lib = _flash_lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = lib.flash_attention_fwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, _FLASH_DTYPES[q.dtype],
+            int(bool(causal)), -1 if window is None else int(window),
+            float(scale), stream)
+    if code != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: "
+                           f"{lib.flash_attention_error_string(code).decode()}")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention(q, k, v, *, causal=True, sm_scale=None, window=None,
+                    impl="kernel"):
+    """Attention output o (B, Hq, Sq, D) in q's dtype.
+
+    ``impl="kernel"``: ``flash_attention_fwd`` (the kernel on a CUDA tensor,
+    its plain version on a CPU tensor). ``impl="reference"``: the plain
+    ``ref.attention_ref``.
+    """
+    if impl == "kernel":
+        return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
+                                   window=window)[0]
+    if impl == "reference":
+        return kref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
+                                  window=window)
+    raise ValueError(f"impl must be 'kernel' or 'reference', got {impl!r}")
+
+
+__all__ = ["copyscore_tile_fused", "flash_attention", "flash_attention_fwd",
+           "tile_scores"]

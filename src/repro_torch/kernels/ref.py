@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the port's kernels.
+"""Plain PyTorch versions of the port's kernels, and the reference attention.
 
 Each function has the semantics of its kernel (block-constant p̂, the same
-channel order and the same float32 association), so the CPU tests hold it
+channel order and the same float32 association; for attention the same
+masking and float32 softmax), so the CPU tests hold it
 against the JAX package and ``chip_smoke.py`` holds the kernel against it
 on the card. On the card it is no yardstick of speed: it repeats the
 kernel's arithmetic with one PyTorch call per step.
@@ -102,4 +103,77 @@ def tile_scores_torch(v, acc, p_hat, delta, nout, coords, stacks, *,
             st[t] = st[t] + o
 
 
-__all__ = ["copyscore_fused_torch", "tile_scores_torch"]
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+#: The finite mask value of the JAX package's flash kernel.
+NEG_INF = -1e30
+
+
+def _visible(Sq: int, Sk: int, causal: bool, window, device):
+    """(Sq, Sk) bool: key j visible from query i (absolute indices, as the
+    JAX kernel's ``_block_mask``)."""
+    qi = torch.arange(Sq, device=device)[:, None]
+    kj = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qi >= kj
+    if window is not None:
+        mask &= (qi - kj) < window
+    return mask
+
+
+def attention_ref(q, k, v, *, causal=True, sm_scale=None, window=None):
+    """Reference attention. q (B,Hq,Sq,D); k,v (B,Hkv,Sk,D) with Hq % Hkv == 0.
+
+    window (int): sliding-window size — key j visible from query i iff
+    0 ≤ i − j < window (combined with causal). Logits and probabilities in
+    float32, masked with -inf (a row with nothing visible is NaN), output in
+    q's dtype: the JAX package's ``attention_ref``.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Hkv, group, Sq, D).to(torch.float32)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32)) * scale
+    mask = _visible(Sq, Sk, causal, window, q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v.to(torch.float32))
+    return out.reshape(B, Hq, Sq, D).to(q.dtype)
+
+
+def flash_attention_fwd_torch(q, k, v, *, causal=True, sm_scale=None,
+                              window=None):
+    """Plain version of the flash-attention forward kernel: (o, lse).
+
+    q (B,Hq,Sq,D); k,v (B,Hkv,Sk,D), kv head = q head // (Hq // Hkv). Logits
+    s = (q·k)·sm_scale in float32, masked with the finite ``NEG_INF``;
+    m = max over the visible keys, p = exp(s − m) on visible keys and 0
+    elsewhere, l = Σp, o = (p·v) / l in float32 (P is never rounded), cast
+    to q's dtype, and lse = m + log l. A row with nothing visible gets o = 0
+    and lse = NEG_INF + log 1, as the kernel gives it (l = 0 is replaced by
+    1). Any Sq and Sk: nothing is tiled here.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Hkv, group, Sq, D).to(torch.float32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32)) * scale
+    mask = _visible(Sq, Sk, causal, window, q.device)
+    s = s.masked_fill(~mask, NEG_INF)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m).masked_fill_(~mask, 0.0)
+    del s
+    l = p.sum(dim=-1, keepdim=True)
+    safe_l = torch.where(l > 0.0, l, torch.ones_like(l))
+    o = torch.einsum("bhgqk,bhkd->bhgqd", p, v.to(torch.float32)) / safe_l
+    lse = (m + torch.log(safe_l))[..., 0]
+    return o.reshape(B, Hq, Sq, D).to(q.dtype), lse.reshape(B, Hq, Sq)
+
+
+__all__ = ["NEG_INF", "attention_ref", "copyscore_fused_torch",
+           "flash_attention_fwd_torch", "tile_scores_torch"]
