@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths on the card — the detection pass
-``repro_torch.core.DetectionEngine(mode="bucketed").detect`` and the LM
+Drives the port's three paths on the card — the detection pass
+``repro_torch.core.DetectionEngine(mode="bucketed").detect``, the LM
 serving path ``repro_torch.models.Model.prefill`` with
-``repro_torch.runtime.ServeLoop`` — and checks them phase by phase; any
+``repro_torch.runtime.ServeLoop``, and the LM training path
+``repro_torch.runtime.train`` — and checks them phase by phase; any
 failure exits non-zero. Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -45,10 +46,31 @@ failure exits non-zero. Phases:
   9. timing of the flash-attention kernel at the prefill's shapes (B=8,
      Hq=32, Hkv=8, S=2048, D=64, bf16, causal) beside the plain version,
      ``F.scaled_dot_product_attention`` (timed only; the port never calls
-     it) and the bound computed from the shapes.
+     it) and the bound computed from the shapes;
+ 10. the two flash-attention backward kernels (dq; dk/dv) against their
+     plain versions on every case of phase 7 in float32 and bfloat16, rows
+     with nothing visible (zero gradients, no NaN), and the
+     ``FlashAttention`` Function's gradient against autograd of the
+     reference attention;
+ 11. the LM training slice at full Llama-3.2-1B width: (a) the gradient of
+     ``Model.loss`` on 1 × 512 tokens through the kernels against the
+     reference attention, both float32 (relative error per leaf), and the
+     bf16 kernel path against the same reference (cosine); (b)
+     ``runtime.train`` — the entry point of ``launch/train.py`` — for a
+     few steps of 4 × 2048 tokens (float32 parameters, bf16 compute,
+     ``remat``, AdamW) on one fixed batch: step-0 loss in a stated band,
+     the last loss lower by a stated margin, the kernels' launches per
+     step asserted, step time, tokens/s and peak device memory;
+ 12. timing of the backward kernels at the training step's shapes (B=4,
+     Hq=32, Hkv=8, S=2048, D=64, bf16, causal) beside their plain versions
+     and the backward of ``F.scaled_dot_product_attention`` (timed only),
+     with their bounds; the forward at the same shapes; the kernels' share
+     of a training step and the step's model-FLOP share of the bf16 peak.
 
 The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one.
+``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
+exits 2 with a message where the checkout's ``src/repro_torch`` is missing
+(the script copied alone into an empty directory).
 """
 from __future__ import annotations
 
@@ -115,6 +137,36 @@ SERVE_NEW_TOKENS, SERVE_SLOTS = 32, 4
 # does; the first served token's prefill logit must lie within this gap of
 # the prefill's maximum
 SERVE_BF16_LOGIT_GAP = BF16_LOGITS_MAX
+# flash backward, kernels vs plain versions. float32: both sum in float32,
+# in another order, over up to group·Sq ≈ 4,000 terms (dk, dv) whose
+# magnitudes exceed the result where ds changes sign, so the difference is
+# a few 1e-6 of the largest entries (≈ 10); bfloat16: one bf16 rounding of
+# each gradient (2⁻⁸ relative) on top, as for the forward's o
+FLASH_BWD_F32_TOL = dict(rtol=1e-4, atol=1e-4)
+FLASH_BWD_BF16_TOL = dict(rtol=2e-2, atol=2e-2)
+# the Function (three kernels) against autograd of attention_ref, float32:
+# autograd differentiates through the normalised softmax, not from lse
+FLASH_GRAD_TOL = dict(rtol=1e-4, atol=1e-4)
+# rows with nothing visible: Sq > Sk under a causal window
+EMPTY_ROWS_CASE = ("empty rows", 1, 4, 2, 128, 64, 64, True, 16)
+# Llama-3.2-1B training (phase 11)
+GRAD_BATCH, GRAD_LEN = 1, 512
+# the kernel path against the reference attention, both float32: the
+# prefill's logits agreed within 2e-5 of std 0.9 (phase 8); the backward
+# repeats that rounding once more per layer, so per-leaf relative errors
+# (‖Δg‖ / ‖g‖) of ~1e-5 are expected; the bound leaves ~100×
+GRAD_F32_REL_MAX = 1e-3
+# the bf16 kernel path against the float32 reference: bf16 keeps 8 bits,
+# so each gradient entry carries a few-% relative error; for independent
+# errors ε the cosine is ≈ 1 − ε²/2 ≈ 0.999, the bound allows ε ≈ 0.14
+GRAD_BF16_COS_MIN = 0.99
+TRAIN_BATCH, TRAIN_LEN, TRAIN_STEPS, TRAIN_WARMUP = 4, 2048, 8, 2
+TRAIN_PEAK_LR = 3e-4                 # the default of runtime.train
+# step-0 loss: logits x·e_v of a unit-RMS state and embeddings of std 0.02
+# have std ≈ 0.02·√2048 ≈ 0.9, so the loss ≈ ln 128256 + σ²/2 ≈ 12.17
+TRAIN_LOSS0_BAND = (11.5, 12.8)
+# the last step's loss below the first by at least this much
+TRAIN_LOSS_DROP_MIN = 0.5
 
 
 def log(msg: str) -> None:
@@ -417,11 +469,343 @@ def phase_flash_timing(torch, dev, ops, ref, card, llama) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": d_o}
 
 
+def _bwd_inputs(torch, ops, dev, seed, B, Hq, Hkv, Sq, Sk, D, dtype, causal,
+                window):
+    """q, k, v, do and the forward's (o, lse) and delta = rowsum(do·o)."""
+    q, k, v = _flash_inputs(torch, dev, seed, B, Hq, Hkv, Sq, Sk, D, dtype)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1000)
+    do = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal=causal, window=window)
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)
+    return q, k, v, do, o, lse, delta
+
+
+def _compare_bwd(torch, ops, ref, q, k, v, do, lse, delta, causal, window):
+    """Both backward kernels (one launch each) against their plain versions
+    on one input. Returns ((dq, dk, dv), max |Δ| of dq, max |Δ| of dk/dv);
+    raises on any disagreement."""
+    kw = dict(causal=causal, window=window)
+    ops.flash_attention_bwd_dq.launches = 0
+    ops.flash_attention_bwd_dkv.launches = 0
+    dq = ops.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = ops.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    if (ops.flash_attention_bwd_dq.launches, ops.flash_attention_bwd_dkv.launches) != (1, 1):
+        raise AssertionError("a backward wrapper did not launch its kernel once")
+    dq_p = ref.flash_attention_bwd_dq_torch(q, k, v, do, lse, delta, **kw)
+    dk_p, dv_p = ref.flash_attention_bwd_dkv_torch(q, k, v, do, lse, delta, **kw)
+    tol = FLASH_BWD_F32_TOL if q.dtype == torch.float32 else FLASH_BWD_BF16_TOL
+    errs = []
+    for name, a, b in (("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        if a.dtype != q.dtype or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{name} is not finite in {q.dtype}")
+        torch.testing.assert_close(a.float(), b.float(), **tol,
+                                   msg=lambda m: f"{name}: {m}")
+        errs.append(float((a.float() - b.float()).abs().max()))
+    return (dq, dk, dv), errs[0], max(errs[1:])
+
+
+def phase_flash_bwd_cases(torch, dev, ops, ref) -> dict:
+    """Phase 10: the backward kernels against their plain versions on every
+    forward case, rows with nothing visible, and the Function's gradient
+    against autograd of the reference. Returns the worst |Δ| per kernel."""
+    worst = {"dq": 0.0, "dkv": 0.0}
+    cases = list(enumerate(FLASH_CASES)) + [(len(FLASH_CASES), EMPTY_ROWS_CASE)]
+    for i, (name, B, Hq, Hkv, Sq, Sk, D, causal, window) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, o, lse, delta = _bwd_inputs(
+                torch, ops, dev, i, B, Hq, Hkv, Sq, Sk, D, dtype, causal, window)
+            (dq, dk, dv), e_dq, e_dkv = _compare_bwd(
+                torch, ops, ref, q, k, v, do, lse, delta, causal, window)
+            worst["dq"] = max(worst["dq"], e_dq)
+            worst["dkv"] = max(worst["dkv"], e_dkv)
+            extra = ""
+            if name == "empty rows":          # rows from Sk − 1 + window see no key
+                first = Sk - 1 + window
+                if not (bool((lse[:, :, first:] == ref.NEG_INF).all())
+                        and bool((dq[:, :, first:] == 0).all())
+                        and bool(dq[:, :, :first].abs().sum() > 0)):
+                    raise AssertionError("empty rows: lse or dq is wrong")
+                extra = f"; rows {first}.. see no key, their dq == 0, no NaN"
+            log(f"[10] {name} {str(dtype)[6:]} (B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} "
+                f"Sk={Sk} D={D}): max |Δdq| {e_dq:.3e}, max |Δdk,dv| "
+                f"{e_dkv:.3e}{extra}")
+    # the Function (forward + both backward kernels) against autograd
+    for i in (1, 5):
+        name, B, Hq, Hkv, Sq, Sk, D, causal, window = FLASH_CASES[i]
+        q, k, v = _flash_inputs(torch, dev, 50 + i, B, Hq, Hkv, Sq, Sk, D,
+                                torch.float32)
+        g = torch.randn_like(q)
+        grads = []
+        for fn in (ops.flash_attention, ref.attention_ref):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            out = fn(*leaves, causal=causal, window=window)
+            grads.append(torch.autograd.grad(out, leaves, g))
+        torch.cuda.synchronize()
+        errs = []
+        for gn, a, b in zip(("dq", "dk", "dv"), *grads):
+            torch.testing.assert_close(a, b, **FLASH_GRAD_TOL,
+                                       msg=lambda m: f"{gn}: {m}")
+            errs.append(float((a - b).abs().max()))
+        log(f"[10] FlashAttention gradient vs autograd of attention_ref, "
+            f"{name} float32: max |Δ| dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+            f"{errs[2]:.3e} (≤ {FLASH_GRAD_TOL})")
+    return worst
+
+
+def _count_launches(ops):
+    return (ops.flash_attention_fwd.launches, ops.flash_attention_bwd_dq.launches,
+            ops.flash_attention_bwd_dkv.launches)
+
+
+def _reset_launches(ops):
+    ops.flash_attention_fwd.launches = 0
+    ops.flash_attention_bwd_dq.launches = 0
+    ops.flash_attention_bwd_dkv.launches = 0
+
+
+def _loss_grads(torch, model, params, batch):
+    from repro_torch.models.common import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = model.loss(params, batch)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    return float(loss.detach()), grads
+
+
+def phase_train(torch, ops) -> dict:
+    """Phase 11: the training slice at full Llama-3.2-1B width."""
+    import itertools
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batches, synthetic_corpus
+    from repro_torch.models import Model
+    from repro_torch.runtime import StepMonitor, train
+
+    cfg = get_config("llama3.2-1b")
+    corpus = synthetic_corpus(vocab_size=cfg.vocab_size, doc_len=TRAIN_LEN + 1,
+                              seed=0)
+
+    # (a) gradient parity at full width on 1 × 512 tokens
+    model = Model(cfg)
+    params = model.init(seed=0)
+    small = next(batches(corpus, GRAD_BATCH, GRAD_LEN, seed=1))
+    l_ref, g_ref = _loss_grads(torch, Model(cfg.replace(
+        dtype="float32", attention_impl="reference")), params, small)
+    _reset_launches(ops)
+    l_k32, g_k32 = _loss_grads(torch, Model(cfg.replace(dtype="float32")),
+                               params, small)
+    launches = _count_launches(ops)
+    n = cfg.n_layers
+    if launches != (2 * n, n, n):
+        raise AssertionError(f"float32 loss gradient launched (fwd, dq, dkv) "
+                             f"{launches}, not {(2 * n, n, n)}")
+    rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+           for a, b in zip(g_k32, g_ref)]
+    del g_k32
+    l_bf, g_bf = _loss_grads(torch, model, params, small)
+    dot = sum(float((a.float() * b).sum()) for a, b in zip(g_bf, g_ref))
+    n_bf = math.sqrt(sum(float(a.float().square().sum()) for a in g_bf))
+    n_ref = math.sqrt(sum(float(b.square().sum()) for b in g_ref))
+    cos = dot / (n_bf * n_ref)
+    log(f"[11] gradient of Model.loss at full width, {GRAD_BATCH}x{GRAD_LEN} "
+        f"tokens: loss reference f32 {l_ref:.6f}, kernel f32 {l_k32:.6f}, "
+        f"kernel bf16 {l_bf:.6f}; launches (fwd, dq, dkv) {launches}")
+    log(f"[11] kernel f32 vs reference f32: per-leaf ‖Δg‖/‖g‖ max {max(rel):.3e} "
+        f"(≤ {GRAD_F32_REL_MAX}) over {len(rel)} leaves; bf16 kernel vs f32 "
+        f"reference: cosine {cos:.6f} (≥ {GRAD_BF16_COS_MIN}), gradient norms "
+        f"{n_bf:.4f} / {n_ref:.4f}")
+    if max(rel) > GRAD_F32_REL_MAX or not cos >= GRAD_BF16_COS_MIN:
+        raise AssertionError("full-width gradients outside the stated bounds")
+    del params, g_ref, g_bf, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) runtime.train on one fixed batch of 4 × 2048, repeated
+    batch = next(batches(corpus, TRAIN_BATCH, TRAIN_LEN, seed=2))
+
+    per_step = []
+
+    class LaunchMonitor(StepMonitor):
+        """Records the kernels' launches of each step, then resets them."""
+
+        def record(self, step, seconds):
+            per_step.append(_count_launches(ops))
+            _reset_launches(ops)
+            return super().record(step, seconds)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(ops)
+    t0 = time.perf_counter()
+    state, hist = train(Model(cfg), itertools.repeat(batch), steps=TRAIN_STEPS,
+                        peak_lr=TRAIN_PEAK_LR, warmup=TRAIN_WARMUP,
+                        monitor=LaunchMonitor(), log_every=1, log_fn=log)
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if per_step != [(2 * n, n, n)] * TRAIN_STEPS:
+        raise AssertionError(f"launches (fwd, dq, dkv) per step {per_step}, "
+                             f"not {(2 * n, n, n)} each")
+    losses = [h["loss"] for h in hist]
+    secs = [h["seconds"] for h in hist]
+    step_s = sum(secs[1:]) / (len(secs) - 1)      # step 0 warms up
+    tokens = TRAIN_BATCH * TRAIN_LEN
+    log(f"[11] train {TRAIN_STEPS} steps of {TRAIN_BATCH}x{TRAIN_LEN} (float32 "
+        f"params, bf16 compute, remat, AdamW, peak lr {TRAIN_PEAK_LR}, warmup "
+        f"{TRAIN_WARMUP}) in {train_s:.3f} s incl. init; losses "
+        f"{[round(x, 4) for x in losses]}; step seconds "
+        f"{[round(x, 4) for x in secs]}")
+    log(f"[11] step {step_s * 1e3:.2f} ms (mean of steps 1..{TRAIN_STEPS - 1}), "
+        f"{tokens / step_s:.1f} tok/s, peak device memory {peak / 2**30:.3f} GiB; "
+        f"launches per step (fwd, dq, dkv) {per_step[0]}")
+    lo, hi = TRAIN_LOSS0_BAND
+    if not all(math.isfinite(x) for x in losses) or not lo <= losses[0] <= hi:
+        raise AssertionError(f"step-0 loss {losses[0]} outside {TRAIN_LOSS0_BAND}")
+    if not losses[-1] <= losses[0] - TRAIN_LOSS_DROP_MIN:
+        raise AssertionError(f"loss fell from {losses[0]} to {losses[-1]}, "
+                             f"less than {TRAIN_LOSS_DROP_MIN}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    _profile_step(torch, cfg, batch)
+    return {"launches": {"dq": sum(c[1] for c in per_step),
+                         "dkv": sum(c[2] for c in per_step)},
+            "step_s": step_s, "n_layers": n, "cfg": cfg}
+
+
+def _profile_step(torch, cfg, batch, top: int = 12) -> None:
+    """One train step (after a warm-up step) of the step function
+    ``runtime.train`` runs, under ``torch.profiler``: device time by kernel,
+    grouped, and the device's idle share of the step's wall time. A
+    measurement only: a profiler that cannot trace the card is reported,
+    not failed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.runtime import init_train_state, make_train_step
+
+    model, opt = Model(cfg), adamw()
+    state = init_train_state(model, opt, seed=0)
+    step = make_train_step(model, opt, warmup_cosine(TRAIN_PEAK_LR, 1, 4))
+    float(step(state, batch)[1]["loss"])                       # warm-up
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(step(state, batch)[1]["loss"])
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    except Exception as exc:          # noqa: BLE001 — report, do not fail
+        log(f"[11] profiler unavailable: {exc!r}")
+        return
+    finally:
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    busy = sum(ms for _, ms, _ in kernels)
+    if busy <= 0:
+        log("[11] profiler traced no device time")
+        return
+    groups = {"flash kernels (this port)": 0.0, "GEMMs (cuBLAS)": 0.0, "other": 0.0}
+    for name, ms, _ in kernels:
+        low = name.lower()
+        key = ("flash kernels (this port)" if "flash_" in low else
+               "GEMMs (cuBLAS)" if any(w in low for w in ("gemm", "nvjet"))
+               else "other")
+        groups[key] += ms
+    log(f"[11] profiled step: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, "
+        f"idle share {1 - busy / wall_ms:.1%}; by group "
+        + ", ".join(f"{k} {v:.2f} ms ({v / busy:.1%})" for k, v in groups.items()))
+    for name, ms, count in sorted(kernels, key=lambda x: -x[1])[:top]:
+        log(f"[11]   {ms:9.3f} ms  x{count:<4d} {name[:110]}")
+
+
+def _model_flops(cfg, B, S) -> float:
+    """Model FLOPs of one training step (forward and backward, no remat
+    recompute): 6·T·N over the weight products (N counts each layer's
+    q/k/v/o and MLP weights and the tied head), plus 12·D·P per layer for
+    attention (2 products forward, 4 backward, 2·D FLOPs each per visible
+    pair; P = B·Hq·S(S+1)/2 visible causal pairs)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    layer = (d * cfg.n_heads * hd * 2 + d * cfg.n_kv_heads * hd * 2
+             + 3 * d * cfg.d_ff)
+    n_mat = cfg.n_layers * layer + d * cfg.vocab_size
+    pairs = B * cfg.n_heads * S * (S + 1) // 2
+    return 6.0 * B * S * n_mat + 12.0 * hd * pairs * cfg.n_layers
+
+
+def phase_flash_bwd_timing(torch, dev, ops, ref, card, training) -> dict:
+    """Phase 12: the backward kernels at the training step's shapes."""
+    import torch.nn.functional as F
+
+    B, Hq, Hkv, S, D = TRAIN_BATCH, 32, 8, TRAIN_LEN, 64
+    kw = dict(causal=True, window=None)
+    q, k, v, do, o, lse, delta = _bwd_inputs(
+        torch, ops, dev, 98, B, Hq, Hkv, S, S, D, torch.bfloat16, True, None)
+    _, e_dq, e_dkv = _compare_bwd(torch, ops, ref, q, k, v, do, lse, delta,
+                                  True, None)
+    args = (q, k, v, do, lse, delta)
+    dq_ms = _time_ms(torch, lambda: ops.flash_attention_bwd_dq(*args, **kw), 10)
+    dkv_ms = _time_ms(torch, lambda: ops.flash_attention_bwd_dkv(*args, **kw), 10)
+    fwd_ms = _time_ms(torch, lambda: ops.flash_attention_fwd(q, k, v, causal=True), 10)
+    dq_plain = _time_ms(torch, lambda: ref.flash_attention_bwd_dq_torch(*args, **kw), 3)
+    dkv_plain = _time_ms(torch, lambda: ref.flash_attention_bwd_dkv_torch(*args, **kw), 3)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+    backend = type(out.grad_fn).__name__
+    sdpa_ms = _time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True), 10)
+    pairs = B * Hq * S * (S + 1) // 2                # visible (q, k) pairs
+    qb, kvb, stat = 2 * q.numel(), 2 * k.numel(), 4 * lse.numel()
+    bounds = {}
+    for name, n_prod, nbytes in (("dq", 3, 3 * qb + 2 * kvb + 2 * stat),
+                                 ("dkv", 4, 2 * qb + 4 * kvb + 2 * stat)):
+        flops = n_prod * 2 * D * pairs
+        t_ops, t_bytes = flops / BF16_OPS * 1e3, nbytes / HBM_BPS * 1e3
+        bound = max(t_ops, t_bytes)
+        bounds[name] = (bound, "operations" if bound == t_ops else "bytes")
+        log(f"[12] {name} bound {bound:.4f} ms by {bounds[name][1]} ({flops} "
+            f"operations {t_ops:.4f} ms at bf16 peak, {nbytes} B {t_bytes:.4f} ms)")
+    log(f"[12] flash backward B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} bf16 causal "
+        f"({card}): kernels vs plain max |Δdq| {e_dq:.3e}, max |Δdk,dv| {e_dkv:.3e}")
+    log(f"[12] dq kernel {dq_ms:.4f} ms (plain {dq_plain:.4f} ms); dk/dv kernel "
+        f"{dkv_ms:.4f} ms (plain {dkv_plain:.4f} ms); forward kernel {fwd_ms:.4f} "
+        f"ms; backward of scaled_dot_product_attention(is_causal=True, "
+        f"enable_gqa=True) {sdpa_ms:.4f} ms ({backend}; dq, dk and dv together)")
+    n, step_ms = training["n_layers"], training["step_s"] * 1e3
+    kernels_ms = 2 * n * fwd_ms + n * (dq_ms + dkv_ms)
+    mflops = _model_flops(training["cfg"], B, S)
+    mfu = mflops / training["step_s"] / BF16_OPS
+    log(f"[12] in a training step: {2 * n} x fwd + {n} x dq + {n} x dk/dv = "
+        f"{kernels_ms:.3f} ms of {step_ms:.3f} ms ({kernels_ms / step_ms:.1%}, "
+        f"per-launch CUDA-event times above x launches per step); model FLOPs "
+        f"{mflops:.4e} per step = {mflops / training['step_s'] / 1e12:.2f} TFLOP/s, "
+        f"{mfu:.2%} of the {BF16_OPS / 1e12:.0f} TFLOP/s bf16 peak")
+    for x in (dq_ms, dkv_ms, fwd_ms, dq_plain, dkv_plain, sdpa_ms):
+        if not math.isfinite(x) or x <= 0:
+            raise AssertionError("a timing is not a positive number")
+    return {"dq": {"ms": dq_ms, "plain_ms": dq_plain, "bound_ms": bounds["dq"][0],
+                   "bound_by": bounds["dq"][1], "library_ms": sdpa_ms,
+                   "max_abs_err": e_dq},
+            "dkv": {"ms": dkv_ms, "plain_ms": dkv_plain,
+                    "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1],
+                    "library_ms": sdpa_ms, "max_abs_err": e_dkv}}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT} holds no src/repro_torch; run this script "
+              f"from the root of a checkout of the repository", file=sys.stderr)
         return 2
     import numpy as np
 
@@ -637,6 +1021,27 @@ def main() -> int:
     # -- 9. flash timing at the prefill's shapes -----------------------------
     fl = phase_flash_timing(torch, dev, ops, ref, card, llama)
 
+    # -- 10. flash backward vs plain, every case -----------------------------
+    bwd_worst = phase_flash_bwd_cases(torch, dev, ops, ref)
+
+    # -- 11. the training slice at full Llama-3.2-1B width -------------------
+    training = phase_train(torch, ops)
+
+    # -- 12. flash backward timing at the training step's shapes -------------
+    bt = phase_flash_bwd_timing(torch, dev, ops, ref, card, training)
+    bwd = []
+    for name, key, line in (("flash_attention_bwd_dq", "dq", 151),
+                            ("flash_attention_bwd_dkv", "dkv", 180)):
+        bwd.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": training["launches"][key],
+            **bt[key],
+            "max_abs_err": max(bwd_worst[key], bt[key]["max_abs_err"]),
+        })
+
     record = {"kernels": [{
         "name": "copyscore_fused",
         "route": "cuda",
@@ -656,7 +1061,7 @@ def main() -> int:
         "bound_ms": fl["bound_ms"],
         "bound_by": fl["bound_by"],
         "library_ms": fl["library_ms"],
-    }]}
+    }, *bwd]}
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

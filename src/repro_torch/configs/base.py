@@ -1,7 +1,7 @@
 """Config schema: model architectures and the layer plan.
 
 The port's copy of the JAX package's ``configs/base.py``, cut to the fields
-the ``dense`` path reads: the same names, the same defaults and the same
+the ``dense`` path reads in serving and training: the same names, the same defaults and the same
 ``reduced()`` for them, so a test can build one configuration in both
 packages and compare like with like. The fields of the other block kinds
 (MoE, SSM, cross, hybrid windows), the MLP variants and the benchmark
@@ -46,6 +46,9 @@ class ModelConfig:
     dtype: str = "bfloat16"          # compute dtype
     param_dtype: str = "float32"
     attention_impl: str = "kernel"   # kernel | reference
+    # training
+    remat: bool = True
+    optimizer: str = "adamw"         # adamw (adafactor waits, ROADMAP A14)
 
     @property
     def resolved_head_dim(self) -> int:

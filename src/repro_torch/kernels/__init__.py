@@ -2,11 +2,16 @@
 with their plain PyTorch versions (``ref``); ``ops`` holds the wrappers that
 dispatch by the device of their tensors."""
 from repro_torch.kernels.ops import (
+    FlashAttention,
     copyscore_tile_fused,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
     flash_attention_fwd,
     tile_scores,
 )
 
-__all__ = ["copyscore_tile_fused", "flash_attention", "flash_attention_fwd",
-           "tile_scores"]
+__all__ = ["FlashAttention", "copyscore_tile_fused", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "flash_attention_fwd", "tile_scores"]

@@ -1,0 +1,502 @@
+// Flash-attention backward for Hopper (sm_90a): dq, and dk/dv, of
+// online-softmax attention with causal masking, a sliding window and
+// grouped-query heads, from the forward's logsumexp.
+//
+// Two kernels, each replacing one TPU kernel of the JAX package's
+// kernels/flash_attention.py (reached there through flash_attention_bwd ->
+// the custom_vjp of ops.flash_attention -> jax.value_and_grad(Model.loss)
+// on the training path):
+//   flash_bwd_dq_kernel  replaces _bwd_dq_kernel  (line 151): dq;
+//   flash_bwd_dkv_kernel replaces _bwd_dkv_kernel (line 180): dk and dv.
+// Both compute, for each visible (query i, key j) pair, what the TPU
+// kernels compute:
+//   s  = (q_i·k_j)·scale in float32,  p = exp(s - lse_i),
+//   dp = do_i·v_j,                    ds = p·(dp - delta_i)·scale,
+// with delta_i = Σ_d do_i·o_i (float32, computed by the wrapper, as the
+// JAX wrapper computes it outside its kernels), and then
+//   dq_i = Σ_j ds·k_j,   dk_j = Σ_i ds·q_i,   dv_j = Σ_i p·do_i,
+// every sum in float32, each output rounded once to the inputs' type.
+// Key j is visible from query i iff j < Sk, i < Sq, (not causal or
+// j <= i) and (no window or i - j < window). A masked pair gives p = 0 by
+// selection, never by a product with the mask: a row with nothing visible
+// has lse = NEG_INF + log 1 from the forward, where exp(s - lse) would
+// overflow; such a row gets zero gradients.
+//
+// Differences from the TPU kernels, on purpose:
+// - dk/dv are summed over each kv head's group of q heads inside the
+//   kernel. The JAX wrapper writes (B, Hq, Sk, D) float32 per q head and
+//   group-sums it afterwards (flash_attention.py:270-277); here one block
+//   owns a key tile of one kv head and loops over the group's q heads, so
+//   no (B, Hq, Sk, D) intermediate exists and no atomics are needed: the
+//   result is deterministic. It is the same function summed in another
+//   order.
+// - Ragged edges are masked. The JAX wrapper floors n_q and n_k to whole
+//   blocks; here any Sq and Sk work (rows past Sq or Sk are zero-filled in
+//   shared memory, masked and never stored).
+//
+// What bounds them on this card. At the training step's shapes (B=4,
+// Hq=32, Hkv=8, S=2048, D=64, bf16, causal) there are B·Hq·S(S+1)/2 ≈
+// 2.69e8 visible pairs, 2·D operations each per product: dq does three
+// products (s, dp, dq: 1.03e11 operations, 0.104 ms at the bf16
+// tensor-core peak of 989 TFLOP/s), dk/dv four (s, dp, dv, dk: 1.37e11,
+// 0.139 ms), against ~0.1 GB of q/k/v/do/lse/delta read and gradients
+// written (~0.03 ms at 3.35 TB/s): both are bound by operations. This
+// first version, like the forward, does every product as a float32 FMA on
+// the CUDA cores (67 TFLOP/s peak) from operands in shared memory, so in
+// practice it is bound by the FMA rate and shared-memory bandwidth, well
+// above the tensor-core bound. mma.sync/wgmma, TMA staging and keeping p
+// and ds in registers are left for later work.
+//
+// Design. 256 threads a block, 64×64 tiles, operands converted to float32
+// in shared memory with row pitch D+4 (16-byte aligned rows, conflict-free
+// float4 reads across a quarter warp), as in flash_attention_fwd.cu.
+// Thread (ty, tx) holds rows ty+16i and columns tx+16j (i, j < 4) of a
+// 64×64 score tile and output columns tx+16n (n < D/16); p or ds goes
+// through shared memory for the second product.
+// - dq: grid (ceil(Sq/64), B·Hq); a block owns 64 query rows of one q
+//   head and loops over the key tiles of its kv head that the causal
+//   limit and the window admit (tiles wholly outside are never loaded),
+//   heaviest query tiles first under causal masking. dq stays in float32
+//   registers for the whole loop and is written once.
+// - dk/dv: grid (ceil(Sk/64), B·Hkv); a block owns 64 keys of one kv
+//   head and loops over the group's q heads and, for each, the query
+//   tiles that can see its keys, heaviest key tiles first under causal
+//   masking. dk and dv stay in float32 registers and are written once in
+//   (B, Hkv, Sk, D).
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BQ = 64;         // query rows per tile
+constexpr int BK = 64;         // keys per tile
+constexpr int THREADS = 256;
+constexpr int PT = 64 + 4;     // pitch of a 64×64 score tile's rows (floats)
+
+template <int D>
+struct Pitch {
+  static constexpr int P = D + 4;               // pitch of q/k/v/do rows
+};
+
+// dq kernel's shared memory: q, do, k, v tiles and the ds tile.
+template <int D>
+struct SmemDq {
+  static constexpr int P = Pitch<D>::P;
+  static constexpr int q = 0;
+  static constexpr int dO = q + BQ * P;
+  static constexpr int k = dO + BQ * P;
+  static constexpr int v = k + BK * P;
+  static constexpr int ds = v + BK * P;
+  static constexpr size_t bytes = (size_t)(ds + BQ * PT) * sizeof(float);
+};
+
+// dk/dv kernel's shared memory: k, v, q, do tiles, the transposed p and ds
+// tiles, and the q tile's lse and delta.
+template <int D>
+struct SmemDkv {
+  static constexpr int P = Pitch<D>::P;
+  static constexpr int k = 0;
+  static constexpr int v = k + BK * P;
+  static constexpr int q = v + BK * P;
+  static constexpr int dO = q + BQ * P;
+  static constexpr int pt = dO + BQ * P;
+  static constexpr int dst = pt + BK * PT;
+  static constexpr int lse = dst + BK * PT;
+  static constexpr int delta = lse + BQ;
+  static constexpr size_t bytes = (size_t)(delta + BQ) * sizeof(float);
+};
+
+__device__ __forceinline__ float4 load4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  __nv_bfloat162 lo, hi;
+  lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  const float2 a = __bfloat1622float2(lo);
+  const float2 b = __bfloat1622float2(hi);
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+__device__ __forceinline__ void store1(float* dst, float x) { *dst = x; }
+
+__device__ __forceinline__ void store1(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16(x);                   // round to nearest even
+}
+
+__device__ __forceinline__ float fma4(float4 a, float4 b, float c) {
+  c = fmaf(a.x, b.x, c);
+  c = fmaf(a.y, b.y, c);
+  c = fmaf(a.z, b.z, c);
+  return fmaf(a.w, b.w, c);
+}
+
+// Rows [row0, row0 + 64) of a row-major (n_rows, D) matrix into shared
+// memory as float32 with pitch D+4; rows at or past n_rows are zero.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
+                                          int n_rows) {
+  constexpr int P = Pitch<D>::P;
+  constexpr int V4 = D / 4;
+  for (int c = threadIdx.x; c < 64 * V4; c += THREADS) {
+    const int r = c / V4;
+    const int d = (c % V4) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < n_rows) x = load4(src + (size_t)(row0 + r) * D + d);
+    *reinterpret_cast<float4*>(&dst[r * P + d]) = x;
+  }
+}
+
+// out[i][j] = A[ty+16i] · B[tx+16j] over D, for two 64-row tiles in
+// shared memory with pitch D+4.
+template <int D>
+__device__ __forceinline__ void tile_dot(float out[4][4], const float* A,
+                                         const float* Bm, int ty, int tx) {
+  constexpr int P = Pitch<D>::P;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[i][j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < D; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * P + d]);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      b[j] = *reinterpret_cast<const float4*>(&Bm[(tx + 16 * j) * P + d]);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) out[i][j] = fma4(a[i], b[j], out[i][j]);
+  }
+}
+
+// acc[i][n] += Σ_kk S[ty+16i][kk] · M[kk][tx+16n]: a 64×64 score tile (pitch
+// PT) times a 64×D operand tile (pitch D+4), both in shared memory.
+template <int D>
+__device__ __forceinline__ void tile_mma(float acc[4][D / 16], const float* S,
+                                         const float* M, int ty, int tx) {
+  constexpr int P = Pitch<D>::P;
+  constexpr int NC = D / 16;
+#pragma unroll 2
+  for (int kk = 0; kk < 64; kk += 4) {
+    float4 sr[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      sr[i] = *reinterpret_cast<const float4*>(&S[(ty + 16 * i) * PT + kk]);
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      const int col = tx + 16 * n;
+      const float4 mc =
+          make_float4(M[(kk + 0) * P + col], M[(kk + 1) * P + col],
+                      M[(kk + 2) * P + col], M[(kk + 3) * P + col]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[i][n] = fma4(sr[i], mc, acc[i][n]);
+    }
+  }
+}
+
+__device__ __forceinline__ bool visible(int r, int c, int Sq, int Sk,
+                                        int causal, int window) {
+  return r < Sq && c < Sk && (!causal || r >= c) &&
+         (window <= 0 || r - c < window);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq,
+                    int Hq, int Hkv, int Sq, int Sk, int causal, int window,
+                    float scale) {
+  using L = SmemDq<D>;
+  constexpr int NC = D / 16;
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  float* Qs = smem + L::q;
+  float* DOs = smem + L::dO;
+  float* Ks = smem + L::k;
+  float* Vs = smem + L::v;
+  float* DSs = smem + L::ds;
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int bh = blockIdx.y;
+  const int b = bh / Hq;
+  const int kvh = (bh % Hq) / (Hq / Hkv);
+  const int qt = causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
+  const int q0 = qt * BQ;
+  const size_t kv_base = ((size_t)b * Hkv + kvh) * Sk * D;
+  const T* kb = k + kv_base;
+  const T* vb = v + kv_base;
+
+  load_tile<T, D>(Qs, q + (size_t)bh * Sq * D, q0, Sq);
+  load_tile<T, D>(DOs, dout + (size_t)bh * Sq * D, q0, Sq);
+  float lse_i[4], delta_i[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    lse_i[i] = r < Sq ? lse[(size_t)bh * Sq + r] : 0.0f;
+    delta_i[i] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.0f;
+  }
+
+  // the key tiles any row of this query tile can see
+  int k_lo = 0, k_hi = Sk;
+  if (causal) k_hi = min(Sk, q0 + BQ);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt_begin = k_lo / BK;
+  const int kt_end = (k_hi + BK - 1) / BK;
+
+  float acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) acc[i][n] = 0.0f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();                 // the last tile's K, V and ds are consumed
+    load_tile<T, D>(Ks, kb, k0, Sk);
+    load_tile<T, D>(Vs, vb, k0, Sk);
+    __syncthreads();
+
+    float s[4][4], dp[4][4];
+    tile_dot<D>(s, Qs, Ks, ty, tx);             // rows ty+16i, keys tx+16j
+    tile_dot<D>(dp, DOs, Vs, ty, tx);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = q0 + ty + 16 * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = k0 + tx + 16 * j;
+        const float p = visible(r, c, Sq, Sk, causal, window)
+                            ? expf(s[i][j] * scale - lse_i[i])
+                            : 0.0f;
+        DSs[(ty + 16 * i) * PT + tx + 16 * j] =
+            p * (dp[i][j] - delta_i[i]) * scale;
+      }
+    }
+    __syncthreads();
+    tile_mma<D>(acc, DSs, Ks, ty, tx);          // dq += ds·k
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = q0 + ty + 16 * i;
+    if (r >= Sq) continue;
+    T* row = dq + ((size_t)bh * Sq + r) * D;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) store1(row + tx + 16 * n, acc[i][n]);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk,
+                     T* __restrict__ dv, int Hq, int Hkv, int Sq, int Sk,
+                     int causal, int window, float scale) {
+  using L = SmemDkv<D>;
+  constexpr int NC = D / 16;
+  extern __shared__ float4 smem_f4[];
+  float* smem = reinterpret_cast<float*>(smem_f4);
+  float* Ks = smem + L::k;
+  float* Vs = smem + L::v;
+  float* Qs = smem + L::q;
+  float* DOs = smem + L::dO;
+  float* PTs = smem + L::pt;
+  float* DSTs = smem + L::dst;
+  float* LSEs = smem + L::lse;
+  float* DELs = smem + L::delta;
+
+  const int tx = threadIdx.x & 15;
+  const int ty = threadIdx.x >> 4;
+  const int bkv = blockIdx.y;                   // b·Hkv + kv head
+  const int b = bkv / Hkv;
+  const int kvh = bkv % Hkv;
+  const int group = Hq / Hkv;
+  const int k0 = blockIdx.x * BK;               // heaviest (earliest) first
+  const size_t kv_base = (size_t)bkv * Sk * D;
+
+  load_tile<T, D>(Ks, k + kv_base, k0, Sk);
+  load_tile<T, D>(Vs, v + kv_base, k0, Sk);
+
+  // the query tiles that can see any key of this tile
+  int q_lo = 0, q_hi = Sq;
+  if (causal) q_lo = k0;
+  if (window > 0) q_hi = min(Sq, k0 + BK - 1 + window);
+  const int qt_begin = q_lo / BQ;
+  const int qt_end = q_lo < q_hi ? (q_hi + BQ - 1) / BQ : qt_begin;
+
+  float dk_acc[4][NC], dv_acc[4][NC];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      dk_acc[i][n] = 0.0f;
+      dv_acc[i][n] = 0.0f;
+    }
+
+  for (int g = 0; g < group; ++g) {
+    const size_t bh = (size_t)b * Hq + kvh * group + g;
+    const T* qb = q + bh * Sq * D;
+    const T* dob = dout + bh * Sq * D;
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * BQ;
+      __syncthreads();               // the last tile's Q, dO, pᵀ, dsᵀ are consumed
+      load_tile<T, D>(Qs, qb, q0, Sq);
+      load_tile<T, D>(DOs, dob, q0, Sq);
+      if (threadIdx.x < BQ) {
+        const int r = q0 + threadIdx.x;
+        LSEs[threadIdx.x] = r < Sq ? lse[bh * Sq + r] : 0.0f;
+        DELs[threadIdx.x] = r < Sq ? delta[bh * Sq + r] : 0.0f;
+      }
+      __syncthreads();
+
+      // transposed tiles: keys ty+16i, queries tx+16j
+      float st[4][4], dpt[4][4];
+      tile_dot<D>(st, Ks, Qs, ty, tx);
+      tile_dot<D>(dpt, Vs, DOs, ty, tx);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = tx + 16 * j;
+        const int r = q0 + qc;
+        const float lse_r = LSEs[qc];
+        const float del_r = DELs[qc];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = k0 + ty + 16 * i;
+          const float p = visible(r, c, Sq, Sk, causal, window)
+                              ? expf(st[i][j] * scale - lse_r)
+                              : 0.0f;
+          PTs[(ty + 16 * i) * PT + qc] = p;
+          DSTs[(ty + 16 * i) * PT + qc] = p * (dpt[i][j] - del_r) * scale;
+        }
+      }
+      __syncthreads();
+      tile_mma<D>(dv_acc, PTs, DOs, ty, tx);    // dv += pᵀ·do
+      tile_mma<D>(dk_acc, DSTs, Qs, ty, tx);    // dk += dsᵀ·q
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int c = k0 + ty + 16 * i;
+    if (c >= Sk) continue;
+    T* dkr = dk + kv_base + (size_t)c * D;
+    T* dvr = dv + kv_base + (size_t)c * D;
+#pragma unroll
+    for (int n = 0; n < NC; ++n) {
+      store1(dkr + tx + 16 * n, dk_acc[i][n]);
+      store1(dvr + tx + 16 * n, dv_acc[i][n]);
+    }
+  }
+}
+
+template <typename T, int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int B, int Hq, int Hkv, int Sq, int Sk,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = SmemDq<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)(B * Hq));
+  flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dq, Hq, Hkv, Sq, Sk, causal,
+      window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int Hq, int Hkv, int Sq,
+                       int Sk, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = SmemDkv<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((Sk + BK - 1) / BK), (unsigned)(B * Hkv));
+  flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (T*)dk, (T*)dv, Hq, Hkv, Sq, Sk,
+      causal, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Each launches one kernel on `stream` and returns cudaGetLastError() right
+// after the launch (cudaSuccess and no launch when the grid is empty).
+// Shapes: q, do (B, Hq, Sq, D); k, v (B, Hkv, Sk, D), contiguous, one type,
+// 16-byte aligned, Hq % Hkv == 0, B·Hq <= 65535; lse and delta (B, Hq, Sq)
+// float32; dq like q; dk, dv like k. dtype 0 = float32, 1 = bfloat16; D is
+// 64 or 128; window <= 0 means no window.
+int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
+                                  const void* dout, const void* lse,
+                                  const void* delta, void* dq, int B, int Hq,
+                                  int Hkv, int Sq, int Sk, int D, int dtype,
+                                  int causal, int window, float scale,
+                                  void* stream) {
+  if (Sq <= 0 || B * Hq <= 0) return (int)cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  using Launch = cudaError_t (*)(const void*, const void*, const void*,
+                                 const void*, const void*, const void*, void*,
+                                 int, int, int, int, int, int, int, float,
+                                 cudaStream_t);
+  Launch fn = nullptr;
+  if (dtype == 0 && D == 64) fn = launch_dq<float, 64>;
+  if (dtype == 0 && D == 128) fn = launch_dq<float, 128>;
+  if (dtype == 1 && D == 64) fn = launch_dq<__nv_bfloat16, 64>;
+  if (dtype == 1 && D == 128) fn = launch_dq<__nv_bfloat16, 128>;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)fn(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Sk, causal,
+                 window, scale, (cudaStream_t)stream);
+}
+
+int flash_attention_bwd_dkv_launch(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const void* lse, const void* delta,
+                                   void* dk, void* dv, int B, int Hq, int Hkv,
+                                   int Sq, int Sk, int D, int dtype,
+                                   int causal, int window, float scale,
+                                   void* stream) {
+  if (Sk <= 0 || B * Hkv <= 0) return (int)cudaSuccess;
+  if (Hkv <= 0 || Hq % Hkv) return (int)cudaErrorInvalidValue;
+  using Launch = cudaError_t (*)(const void*, const void*, const void*,
+                                 const void*, const void*, const void*, void*,
+                                 void*, int, int, int, int, int, int, int,
+                                 float, cudaStream_t);
+  Launch fn = nullptr;
+  if (dtype == 0 && D == 64) fn = launch_dkv<float, 64>;
+  if (dtype == 0 && D == 128) fn = launch_dkv<float, 128>;
+  if (dtype == 1 && D == 64) fn = launch_dkv<__nv_bfloat16, 64>;
+  if (dtype == 1 && D == 128) fn = launch_dkv<__nv_bfloat16, 128>;
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk,
+                 causal, window, scale, (cudaStream_t)stream);
+}
+
+const char* flash_attention_bwd_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

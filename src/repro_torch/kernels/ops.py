@@ -17,13 +17,24 @@
                            plain version (``ref.flash_attention_fwd_torch``);
                            a CUDA tensor launches the hand-written Hopper
                            kernel (``csrc/flash_attention_fwd.cu``) or raises.
-``flash_attention``      — the model's attention: ``impl="kernel"`` is
-                           ``flash_attention_fwd``'s o, ``impl="reference"``
-                           the plain ``ref.attention_ref``.
+``flash_attention_bwd_dq`` / ``flash_attention_bwd_dkv`` — the two
+                           backward kernels (dq; dk and dv), from the
+                           forward's lse and delta = rowsum(do·o), on the
+                           same dispatch (``csrc/flash_attention_bwd.cu``).
+``flash_attention_bwd``  — the backward (dq, dk, dv) from (q, k, v, o, lse,
+                           do): delta in plain torch, then both kernels.
+``FlashAttention``       — the ``torch.autograd.Function`` of the two: its
+                           forward is ``flash_attention_fwd``, its backward
+                           ``flash_attention_bwd``.
+``flash_attention``      — the model's attention: ``impl="kernel"`` goes
+                           through ``FlashAttention``, ``impl="reference"``
+                           is the plain ``ref.attention_ref`` (differentiated
+                           by autograd).
 
-``tile_scores.launches`` and ``flash_attention_fwd.launches`` count the
-kernel launches of this process (plain integers; a caller resets one to 0
-to count a run).
+``tile_scores.launches``, ``flash_attention_fwd.launches``,
+``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkv.launches``
+count the kernel launches of this process (plain integers; a caller resets
+one to 0 to count a run).
 """
 from __future__ import annotations
 
@@ -169,16 +180,29 @@ _FLASH_HEAD_DIMS = (64, 128)
 _MAX_GRID_Y = 65535
 
 
-def _flash_lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd_launch
+#: source under ``csrc/`` → the name of its error-string function
+_FLASH_ERRORS = {"flash_attention_fwd": "flash_attention_error_string",
+                 "flash_attention_bwd": "flash_attention_bwd_error_string"}
+
+
+def _flash_launch(name: str, fn_name: str, n_ptr: int, first, *args) -> None:
+    """Launch ``fn_name`` of ``csrc/<name>.cu`` on ``first``'s device and
+    current stream. ``args`` are ``n_ptr`` pointers, then integers, then the
+    float scale; raise on a non-zero CUDA error code."""
+    lib = _build.load(name)
+    fn, err = getattr(lib, fn_name), getattr(lib, _FLASH_ERRORS[name])
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr
+                       + [ctypes.c_int] * (len(args) - n_ptr - 1)
                        + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-    return lib
+        err.restype = ctypes.c_char_p
+        err.argtypes = [ctypes.c_int]
+    with torch.cuda.device(first.device):
+        stream = torch.cuda.current_stream(first.device).cuda_stream
+        code = fn(*args, stream)
+    if code != 0:
+        raise RuntimeError(f"{fn_name} failed: {err(code).decode()}")
 
 
 def _check_qkv(q, k, v, window) -> None:
@@ -207,6 +231,29 @@ def _check_qkv(q, k, v, window) -> None:
         raise ValueError(f"window must be >= 1 or None, got {window}")
 
 
+def _check_cuda(name: str, *tensors) -> None:
+    """Raise unless the operands lie on a CUDA device, aligned for the
+    kernels' 16-byte loads, with B·H within the grid."""
+    q = tensors[0]
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {q.device}")
+    if q.shape[0] * q.shape[1] > _MAX_GRID_Y:
+        raise ValueError(f"B*Hq = {q.shape[0] * q.shape[1]} exceeds the "
+                         f"grid's {_MAX_GRID_Y}")
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: every operand must start on a 16-byte "
+                             f"boundary")
+
+
+def _scale(sm_scale, D: int) -> float:
+    return float(sm_scale if sm_scale is not None else 1.0 / (D ** 0.5))
+
+
+def _window(window) -> int:
+    return -1 if window is None else int(window)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, sm_scale=None, window=None):
     """Attention forward: (o in q's dtype, lse (B, Hq, Sq) float32).
@@ -216,43 +263,32 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     group). Key j is visible from query i iff (not causal or j ≤ i) and
     (window is None or i − j < window); any Sq and Sk. A CPU tensor takes
     ``ref.flash_attention_fwd_torch``; a CUDA tensor launches the kernel.
-    The kernel has no backward yet: a CUDA call that would need a gradient
-    raises.
+    The kernel's output records no graph, so a CUDA call that would need a
+    gradient raises: differentiate through ``flash_attention`` (the
+    ``FlashAttention`` Function), whose backward is the two backward
+    kernels.
     """
     _check_qkv(q, k, v, window)
     if q.device.type == "cpu":
         return kref.flash_attention_fwd_torch(q, k, v, causal=causal,
                                               sm_scale=sm_scale, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_fwd runs on cpu or cuda, not "
-                         f"{q.device}")
+    _check_cuda("flash_attention_fwd", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError(
-            "the flash-attention kernel has no backward yet (ROADMAP B5)")
+        raise RuntimeError(
+            "flash_attention_fwd records no graph on a CUDA tensor; call "
+            "ops.flash_attention, whose FlashAttention Function has the "
+            "backward kernels")
     B, Hq, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
-    if B * Hq > _MAX_GRID_Y:
-        raise ValueError(f"B*Hq = {B * Hq} exceeds the grid's {_MAX_GRID_Y}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must start on a 16-byte boundary")
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return o, lse
-    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
-    lib = _flash_lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.flash_attention_fwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, _FLASH_DTYPES[q.dtype],
-            int(bool(causal)), -1 if window is None else int(window),
-            float(scale), stream)
-    if code != 0:
-        raise RuntimeError(f"flash_attention_fwd launch failed: "
-                           f"{lib.flash_attention_error_string(code).decode()}")
+    _flash_launch("flash_attention_fwd", "flash_attention_fwd_launch", 5, q,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  lse.data_ptr(), B, Hq, Hkv, Sq, Sk, D, _FLASH_DTYPES[q.dtype],
+                  int(bool(causal)), _window(window), _scale(sm_scale, D))
     flash_attention_fwd.launches += 1
     return o, lse
 
@@ -260,22 +296,144 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention_fwd.launches = 0
 
 
+def _check_bwd(q, do, **stats) -> None:
+    """Raise on a backward operand the kernels do not take: ``do`` like q,
+    and each of ``stats`` (lse, delta) (B, Hq, Sq) float32 (q, k, v are
+    checked by ``_check_qkv``)."""
+    B, Hq, Sq, _ = q.shape
+    if tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype:
+        raise ValueError(f"do must be like q {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(do.shape)} {do.dtype}")
+    for name, t in stats.items():
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, Hq, Sq):
+            raise ValueError(f"{name} must be (B, Hq, Sq) = {(B, Hq, Sq)} "
+                             f"float32, got {tuple(t.shape)} {t.dtype}")
+    for name, t in (("do", do), *stats.items()):
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
+                           sm_scale=None, window=None) -> torch.Tensor:
+    """dq (like q) of the flash-attention backward, from the forward's lse
+    and delta = rowsum(do·o), both (B, Hq, Sq) float32. A CPU tensor takes
+    ``ref.flash_attention_bwd_dq_torch``; a CUDA tensor launches the dq
+    kernel (``csrc/flash_attention_bwd.cu``) or raises."""
+    _check_qkv(q, k, v, window)
+    _check_bwd(q, do, lse=lse, delta=delta)
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+    if q.device.type == "cpu":
+        return kref.flash_attention_bwd_dq_torch(q, k, v, do, lse, delta, **kw)
+    _check_cuda("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    B, Hq, Sq, D = q.shape
+    dq = torch.empty_like(q)
+    if q.numel() == 0:
+        return dq
+    _flash_launch("flash_attention_bwd", "flash_attention_bwd_dq_launch", 7, q,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, Hq,
+                  k.shape[1], Sq, k.shape[2], D, _FLASH_DTYPES[q.dtype],
+                  int(bool(causal)), _window(window), _scale(sm_scale, D))
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
+                            sm_scale=None, window=None):
+    """(dk, dv) (like k and v) of the flash-attention backward, summed over
+    each kv head's group of q heads. A CPU tensor takes
+    ``ref.flash_attention_bwd_dkv_torch``; a CUDA tensor launches the dk/dv
+    kernel (``csrc/flash_attention_bwd.cu``) or raises."""
+    _check_qkv(q, k, v, window)
+    _check_bwd(q, do, lse=lse, delta=delta)
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+    if q.device.type == "cpu":
+        return kref.flash_attention_bwd_dkv_torch(q, k, v, do, lse, delta,
+                                                  **kw)
+    _check_cuda("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    B, Hq, Sq, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if k.numel() == 0:
+        return dk, dv
+    _flash_launch("flash_attention_bwd", "flash_attention_bwd_dkv_launch", 8,
+                  q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                  dv.data_ptr(), B, Hq, k.shape[1], Sq, k.shape[2], D,
+                  _FLASH_DTYPES[q.dtype], int(bool(causal)), _window(window),
+                  _scale(sm_scale, D))
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        sm_scale=None, window=None):
+    """The flash-attention backward: (dq, dk, dv) in q's, k's and v's dtypes.
+
+    q, o, do (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D) as the forward takes
+    them, lse (B, Hq, Sq) float32 from the forward. delta = rowsum(do·o)
+    is plain torch in float32 (as the JAX package computes it outside its
+    kernels); then ``flash_attention_bwd_dq`` and
+    ``flash_attention_bwd_dkv`` run: their kernels on a CUDA tensor, their
+    plain versions on a CPU tensor (together
+    ``ref.flash_attention_bwd_torch``).
+    """
+    if tuple(o.shape) != tuple(q.shape) or o.device != q.device:
+        raise ValueError(f"o must be like q {tuple(q.shape)} on {q.device}, "
+                         f"got {tuple(o.shape)} on {o.device}")
+    _check_bwd(q, do, lse=lse)
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention: the forward kernel, and the two
+    backward kernels as its backward (the JAX package's ``custom_vjp`` at
+    ``ops.flash_attention``). ``apply(q, k, v, causal, sm_scale, window)``
+    returns o; (q, k, v, o, lse) are saved for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, sm_scale, window):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                     sm_scale=sm_scale, window=window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.opts = dict(causal=causal, sm_scale=sm_scale, window=window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
+                                         **ctx.opts)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, window=None,
                     impl="kernel"):
-    """Attention output o (B, Hq, Sq, D) in q's dtype.
+    """Differentiable attention output o (B, Hq, Sq, D) in q's dtype.
 
-    ``impl="kernel"``: ``flash_attention_fwd`` (the kernel on a CUDA tensor,
-    its plain version on a CPU tensor). ``impl="reference"``: the plain
+    ``impl="kernel"``: ``FlashAttention`` (the kernels on a CUDA tensor,
+    their plain versions on a CPU tensor). ``impl="reference"``: the plain
     ``ref.attention_ref``.
     """
     if impl == "kernel":
-        return flash_attention_fwd(q, k, v, causal=causal, sm_scale=sm_scale,
-                                   window=window)[0]
+        return FlashAttention.apply(q, k, v, causal, sm_scale, window)
     if impl == "reference":
         return kref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
                                   window=window)
     raise ValueError(f"impl must be 'kernel' or 'reference', got {impl!r}")
 
 
-__all__ = ["copyscore_tile_fused", "flash_attention", "flash_attention_fwd",
-           "tile_scores"]
+__all__ = ["FlashAttention", "copyscore_tile_fused", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "flash_attention_fwd", "tile_scores"]

@@ -175,5 +175,73 @@ def flash_attention_fwd_torch(q, k, v, *, causal=True, sm_scale=None,
     return o.reshape(B, Hq, Sq, D).to(q.dtype), lse.reshape(B, Hq, Sq)
 
 
+def _bwd_probs(q, k, v, do, lse, delta, causal, sm_scale, window):
+    """Grouped (p, ds, q, do) of the backward, all float32 with q and do
+    as (B, Hkv, group, Sq, D) and p, ds as (B, Hkv, group, Sq, Sk).
+
+    p = exp(s − lse) on the visible keys, chosen by selection: a row with
+    nothing visible has lse = NEG_INF + log 1, where exp(s − lse)
+    overflows, and selection (never a product with the mask) keeps its p
+    at 0. ds = p·(do·vᵀ − delta)·sm_scale.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Hkv, group, Sq, D).to(torch.float32)
+    dog = do.reshape(B, Hkv, group, Sq, D).to(torch.float32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(torch.float32)) * scale
+    mask = _visible(Sq, Sk, causal, window, q.device)
+    lse_g = lse.reshape(B, Hkv, group, Sq, 1)
+    p = torch.where(mask, torch.exp(s - lse_g), torch.zeros((), device=q.device))
+    del s
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dog, v.to(torch.float32))
+    ds = p * (dp - delta.reshape(B, Hkv, group, Sq, 1)) * scale
+    return p, ds, qg, dog
+
+
+def flash_attention_bwd_dq_torch(q, k, v, do, lse, delta, *, causal=True,
+                                 sm_scale=None, window=None):
+    """Plain version of the dq kernel: dq = ds·k in float32, cast to q's
+    dtype. ``delta`` (B, Hq, Sq) float32 is rowsum(do·o)."""
+    p, ds, _, _ = _bwd_probs(q, k, v, do, lse, delta, causal, sm_scale, window)
+    del p
+    dq = torch.einsum("bhgqk,bhkd->bhgqd", ds, k.to(torch.float32))
+    return dq.reshape(q.shape).to(q.dtype)
+
+
+def flash_attention_bwd_dkv_torch(q, k, v, do, lse, delta, *, causal=True,
+                                  sm_scale=None, window=None):
+    """Plain version of the dk/dv kernel: dk = dsᵀ·q and dv = pᵀ·do in
+    float32, summed over each kv head's group of q heads, cast to k's and
+    v's dtypes."""
+    p, ds, qg, dog = _bwd_probs(q, k, v, do, lse, delta, causal, sm_scale,
+                                window)
+    dv = torch.einsum("bhgqk,bhgqd->bhkd", p, dog)
+    del p
+    dk = torch.einsum("bhgqk,bhgqd->bhkd", ds, qg)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_torch(q, k, v, o, lse, do, *, causal=True,
+                              sm_scale=None, window=None):
+    """Plain version of the flash-attention backward: (dq, dk, dv).
+
+    q, o, do (B, Hq, Sq, D); k, v (B, Hkv, Sk, D); lse (B, Hq, Sq) float32
+    from the forward. delta = Σ(do·o) over D in float32; s recomputed,
+    p = exp(s − lse) on visible keys only, dp = do·vᵀ,
+    ds = p·(dp − delta)·scale, dq = ds·k, dk = dsᵀ·q and dv = pᵀ·do, dk
+    and dv summed over each kv head's group. Any Sq and Sk; rows with
+    nothing visible get zero gradients. Outputs in the inputs' dtypes.
+    """
+    delta = (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window)
+    dq = flash_attention_bwd_dq_torch(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv_torch(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
 __all__ = ["NEG_INF", "attention_ref", "copyscore_fused_torch",
-           "flash_attention_fwd_torch", "tile_scores_torch"]
+           "flash_attention_bwd_dkv_torch", "flash_attention_bwd_dq_torch",
+           "flash_attention_bwd_torch", "flash_attention_fwd_torch",
+           "tile_scores_torch"]

@@ -1,12 +1,15 @@
-"""The Model API: init / forward / prefill / caches / decode, and the carrier
-of the JAX package's parameters into the port (``params_from_jax``).
+"""The Model API: init / forward / loss / prefill / caches / decode, and the
+carriers of the JAX package's parameters and train state into the port
+(``params_from_jax``, ``train_state_from_jax``).
 
 Parameters keep the JAX package's layout and tree — ``embed`` (V, D), also
 the tied output head, ``final_norm`` (D,), and ``segments``, one dict per
 layer-plan segment with every leaf stacked over a leading layer
 dimension — so a test can hand the same numbers to both packages. They are
 a plain tree passed to each call, as in JAX; the ``Model`` module holds the
-configuration and the device. ``loss`` waits for training (ROADMAP A14).
+configuration and the device. ``loss`` is differentiable: autograd through
+the flash-attention Function (``kernels.ops.FlashAttention``) on the
+kernel path, and with ``cfg.remat`` through per-layer checkpoints.
 """
 from __future__ import annotations
 
@@ -81,6 +84,17 @@ class Model(nn.Module):
         x = self._stack(params, tokens)
         return x.to(torch.float32) @ self._head(params).to(torch.float32)
 
+    def loss(self, params, batch):
+        """batch: {tokens (B, S), labels (B, S)} → mean token cross-entropy
+        (a float32 scalar) over the full float32 logits, as the JAX
+        package's ``Model.loss`` computes it: logsumexp minus the gold
+        logit, averaged."""
+        logits = self.forward(params, batch["tokens"])
+        labels = self._tokens(batch["labels"])
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.mean(lse - gold)
+
     def prefill(self, params, tokens):
         """Serving prefill: last-position logits (B, vocab) only — the
         (B, S, vocab) logits tensor never exists."""
@@ -148,3 +162,14 @@ def params_from_jax(tree, device=None):
         return torch.tensor(a, device=dev)
 
     return tree_map(leaf, tree)
+
+
+def train_state_from_jax(state, device=None):
+    """The JAX package's train state ``{params, opt: {m, v[, master]},
+    step}`` (leaves through ``np.asarray``) as the port's on ``device``:
+    the same trees, dtypes and values, with ``step`` an int64 scalar."""
+    dev = resolve_device(device)
+    return {"params": params_from_jax(state["params"], dev),
+            "opt": params_from_jax(state["opt"], dev),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int64, device=dev)}

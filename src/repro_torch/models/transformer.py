@@ -3,13 +3,17 @@
 A model is a sequence of homogeneous *segments* (configs/base.py layer
 plan); each segment's per-layer parameters are stacked on a leading dim.
 The JAX package runs a segment with ``lax.scan``; the port runs a Python
-loop over the stacked layer dimension (``remat`` has nothing to do in
-inference). The port runs the ``dense`` block kind; every other kind raises
+loop over the stacked layer dimension. With ``cfg.remat`` each layer runs
+under ``torch.utils.checkpoint`` (the counterpart of the JAX package's
+``jax.checkpoint``) whenever autograd records a graph: only the layer's
+input is kept, and the backward recomputes the layer's forward. The port
+runs the ``dense`` block kind; every other kind raises
 ``NotImplementedError`` until it is ported (ROADMAP A14).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (
@@ -62,8 +66,20 @@ def _n_layers(seg_params) -> int:
     return int(seg_params["norm1"].shape[0])
 
 
+def _unstack(seg_params):
+    """Per-layer trees of a stacked tree, through one ``torch.unbind`` per
+    leaf: a backward then gathers each leaf's layer gradients with one
+    stack, where indexing layer by layer would add a zero-filled copy of
+    the whole stacked leaf per layer."""
+    if isinstance(seg_params, dict):
+        per_key = {k: _unstack(v) for k, v in seg_params.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return torch.unbind(seg_params)
+
+
 # ---------------------------------------------------------------------------
-# forward (prefill)
+# forward (training / prefill)
 # ---------------------------------------------------------------------------
 
 def block_forward(kind: str, p, x, rope, cfg: ModelConfig):
@@ -75,8 +91,13 @@ def block_forward(kind: str, p, x, rope, cfg: ModelConfig):
 
 
 def run_segment(kind: str, seg_params, x, rope, cfg: ModelConfig):
-    for i in range(_n_layers(seg_params)):
-        x = block_forward(kind, _layer(seg_params, i), x, rope, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    for p_l in _unstack(seg_params):
+        if remat:
+            x = checkpoint(block_forward, kind, p_l, x, rope, cfg,
+                           use_reentrant=False)
+        else:
+            x = block_forward(kind, p_l, x, rope, cfg)
     return x
 
 
