@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths on the card — the detection pass
-``repro_torch.core.DetectionEngine(mode="bucketed").detect``, the LM
-serving path ``repro_torch.models.Model.prefill`` with
+Drives the port's paths on the card — the detection pass
+``repro_torch.core.DetectionEngine(mode="bucketed").detect``, the
+full-square and per-tile copyscore (``repro_torch.kernels.ops.copyscore_store``,
+``copyscore_tile``) and the index's commit/retract path, the LM serving
+path ``repro_torch.models.Model.prefill`` with
 ``repro_torch.runtime.ServeLoop``, and the LM training path
 ``repro_torch.runtime.train`` — and checks them phase by phase; any
-failure exits non-zero. Phases:
+failure exits non-zero. Phases 13–16 run right after phase 6, while the
+full pass's store is still in memory; then phases 7–12. Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build every kernel under ``src/repro_torch/kernels/csrc`` from the
@@ -65,7 +68,33 @@ failure exits non-zero. Phases:
      Hq=32, Hkv=8, S=2048, D=64, bf16, causal) beside their plain versions
      and the backward of ``F.scaled_dot_product_attention`` (timed only),
      with their bounds; the forward at the same shapes; the kernels' share
-     of a training step and the step's model-FLOP share of the bf16 peak.
+     of a training step and the step's model-FLOP share of the bf16 peak;
+ 13. the single-direction copyscore kernel (B3, and B2 with the error
+     channel) against its plain version: full squares through
+     ``ops.copyscore`` and ragged rectangles (100 × 37, 64 × 130) through
+     ``ops.copyscore_tile`` with and without δ, block_e ∈ {8, 40, 512,
+     4096}; counts equal, scores within rtol 2e-5 / atol 1e-4; and on one
+     chunk of the full pass's width, B3's full square equal to B1's
+     scattered C→/C← grid bit for bit;
+ 14. ``ops.copyscore_store`` over phase 5's engine store (16384 sources,
+     chunks of 4096): seconds, launches (== chunks with a live entry),
+     device ms and peak memory; a sample of chunks against the plain
+     version; on the S=2048 world, the full square's counts equal to the
+     engine's scan grid on its kept tiles and C→ within the tolerance; B3's
+     timing per launch beside the plain version, ``torch._int_mm`` of the
+     count product alone and the bound computed from the shapes;
+ 15. the legacy per-ordered-tile dataflow (B2 on each of the 64 ordered
+     tiles plus a separate non-Ē count product) against the fused one (B1
+     over the 36 unordered tiles) at the JAX kernel bench's settings (the
+     S=2048 world, tile 256, 64 buckets from ``bucketize_engine``,
+     ``pad_buckets`` int8): grids agree, both times and their ratio, and
+     B2's timing at one tile's shapes with its bound;
+ 16. the mutation path at S=512: commits of 8 and 32 rows, a retraction,
+     its rollback, the retraction again and a compaction; after each step
+     the bucketed engine on the card over the mutated index decides like
+     the exact INDEX over a rebuild, and ``copyscore_store`` over the
+     committed store (delta and all-padding chunks included) counts like
+     its dense V·Vᵀ with one launch per chunk with a live entry.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -88,6 +117,13 @@ sys.path.insert(0, str(ROOT / "src"))
 # the full-size pass: the repo's single-host tier, S = 16384 sources
 FULL_SOURCES = 16384
 FULL_ITEMS = 16384
+# the S=512 world of phases 4 and 16, and the S=2048 world of phases 4, 14
+# and 15: the JAX package's scaling specs (benchmarks/datasets.py:38,
+# SCALING_SPECS), copied here, since the script imports nothing of it
+WORLD_512 = dict(n_sources=512, n_items=1536, coverage="book", n_cliques=14,
+                 clique_size=3, clique_items=12, seed=0)
+WORLD_2048 = dict(n_sources=2048, n_items=3072, coverage="book", n_cliques=50,
+                  clique_size=3, clique_items=12, seed=0)
 # comparisons of the kernel with its plain version
 RTOL, ATOL = 2e-5, 1e-4
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 tensor-core
@@ -98,6 +134,25 @@ F32_OPS = 67e12
 # float32 operations the kernel does per pair and chunk after the count
 # product: pr_ind (9), f→ and f← (9 each), the five accumulations (10)
 F32_PER_PAIR_CHUNK = 37
+# the same for the single-direction kernel per pair and entry block: pr_ind
+# (9), f→ (9), C→ and n (3); the error channel adds 2
+F32_PER_PAIR_BLOCK = {"copyscore": 21, "copyscore_err": 23}
+# B2/B3 against their plain version (phase 13): entry-block widths; the full
+# square of COPYSCORE_SQUARE sources through ops.copyscore, and ragged
+# rectangles (rows × columns) through ops.copyscore_tile with and without δ
+COPYSCORE_BLOCK_E = (8, 40, 512, 4096)
+COPYSCORE_SQUARE = 200
+COPYSCORE_RECTS = ((100, 37), (64, 130))
+# the legacy per-ordered-tile dataflow against the fused one (phase 15), at
+# the JAX package's kernel-bench settings (benchmarks/run.py:672-767)
+LEGACY_TILE, LEGACY_BUCKETS = 256, 64
+# its CPU numbers (BENCH_kernel.json: "backend": "cpu"), quoted beside ours
+LEGACY_CPU_SPEEDUPS = "1.26x (int8) and 1.49x (f32)"
+# the mutation schedule (phase 16): corpus rows before the commits, commit
+# sizes, store chunk width, and the committed rows retracted again
+MUTATION_BASE_ROWS = 472
+MUTATION_COMMITS = (8, 32)
+MUTATION_CHUNK = 8
 # bf16 tensor-core op/s (dense), the rate the attention's products bound
 BF16_OPS = 989e12
 # flash attention, kernel vs plain version (tests/test_kernels_flash.py's):
@@ -797,6 +852,426 @@ def phase_flash_bwd_timing(torch, dev, ops, ref, card, training) -> dict:
                     "library_ms": sdpa_ms, "max_abs_err": e_dkv}}
 
 
+def _single_inputs(torch, dev, seed, S_i, S_j, n_e, w):
+    """Random row and column incidence (S_i, n_e·w) and (S_j, n_e·w) int8
+    with their accuracies and per-block p̂ and δ, on ``dev``."""
+    gen = torch.Generator().manual_seed(seed)
+    E = n_e * w
+    out = [(torch.rand((S_i, E), generator=gen) < 0.05).to(torch.int8),
+           (torch.rand((S_j, E), generator=gen) < 0.05).to(torch.int8),
+           torch.empty(S_i).uniform_(0.35, 0.95, generator=gen),
+           torch.empty(S_j).uniform_(0.35, 0.95, generator=gen),
+           torch.empty(n_e).uniform_(0.01, 0.99, generator=gen),
+           torch.empty(n_e).uniform_(0.0, 0.2, generator=gen)]
+    return [x.to(dev) for x in out]
+
+
+def _compare_single(torch, got, want) -> float:
+    """Kernel vs plain version of one pair block: counts equal, C→ (and
+    err) within RTOL/ATOL. Returns the max |Δ| of the score channels."""
+    if len(got) != len(want) or not torch.equal(got[1], want[1]):
+        raise AssertionError("copyscore: counts differ from the plain version")
+    worst = 0.0
+    for c in range(0, len(got), 2):                    # C→, and err
+        torch.testing.assert_close(got[c], want[c], rtol=RTOL, atol=ATOL)
+        worst = max(worst, float((got[c] - want[c]).abs().max()))
+    return worst
+
+
+def _bound(nbytes: int, int8_ops: float, f32_ops: float):
+    """(bound ms, "bytes" or "operations") at the card's published peaks."""
+    t_bytes = nbytes / HBM_BPS * 1e3
+    t_ops = max(int8_ops / INT8_OPS, f32_ops / F32_OPS) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_copyscore_cases(torch, dev, ops, ref, cfg, w_full) -> dict:
+    """Phase 13: B2/B3 against their plain version on the card, and B3's
+    full square against B1's scattered C→/C← grid on one chunk of the full
+    pass's width. Returns the worst |Δ| per kernel."""
+    from repro_torch.core.shardplan import scatter_tile_stacks
+
+    kw = dict(s=cfg.s, n_false=cfg.n)
+    worst = {"copyscore": 0.0, "copyscore_err": 0.0}
+    for i, w in enumerate(COPYSCORE_BLOCK_E):
+        n_e = 1 if w >= 4096 else 3
+        S = COPYSCORE_SQUARE
+        v, _, a, _, p, _ = _single_inputs(torch, dev, 10 + i, S, S, n_e, w)
+        ops.copyscore.launches = 0
+        got = ops.copyscore(v, p, a, block_e=w, **kw)
+        torch.cuda.synchronize()
+        if ops.copyscore.launches != 1:
+            raise AssertionError("ops.copyscore did not launch the kernel once")
+        e = _compare_single(torch, got, ref.copyscore_torch(v, p, a, block_e=w,
+                                                            **kw))
+        worst["copyscore"] = max(worst["copyscore"], e)
+        log(f"[13] full square S={S} block_e={w} x{n_e}: counts equal, max "
+            f"|Δ| C→ {e:.3e}")
+        for S_i, S_j in COPYSCORE_RECTS:
+            v_r, v_c, a_r, a_c, p, d = _single_inputs(torch, dev, S_i + w, S_i,
+                                                      S_j, n_e, w)
+            for name, dd in (("copyscore", None), ("copyscore_err", d)):
+                ops.copyscore_tile.launches = 0
+                got = ops.copyscore_tile(v_r, v_c, p, a_r, a_c, block_e=w,
+                                         delta_blk=dd, **kw)
+                torch.cuda.synchronize()
+                if ops.copyscore_tile.launches != 1:
+                    raise AssertionError("ops.copyscore_tile did not launch "
+                                         "the kernel once")
+                want = ref.copyscore_torch(v_r, p, a_r, v_cols=v_c,
+                                           acc_cols=a_c, delta_blk=dd,
+                                           block_e=w, **kw)
+                e = _compare_single(torch, got, want)
+                worst[name] = max(worst[name], e)
+                log(f"[13] tile {S_i}x{S_j} block_e={w} x{n_e} "
+                    f"{'with' if dd is not None else 'without'} δ: counts "
+                    f"equal, max |Δ| scores {e:.3e}")
+
+    # one chunk of the full pass's width: B3's square == B1's scatter
+    S, T = 2048, 256
+    nb = S // T
+    v, _, a, _, p, d = _single_inputs(torch, dev, 99, S, S, 1, w_full)
+    coords = torch.tensor([[r, c] for r in range(nb) for c in range(r, nb)],
+                          dtype=torch.int32, device=dev)
+    stacks = [torch.zeros((len(coords), T, T), device=dev) for _ in range(5)]
+    ops.tile_scores(v.reshape(S, 1, w_full), a, p, d, torch.ones_like(p),
+                    coords, stacks, tile=T, **kw)
+    grids = [torch.zeros((S, S), device=dev) for _ in range(4)]
+    scatter_tile_stacks(grids, coords, stacks, nb, T)
+    c3, n3 = ops.copyscore(v, p, a, block_e=w_full, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(c3, grids[0]) and torch.equal(n3, grids[1])):
+        raise AssertionError("B3's full square differs from B1's scattered "
+                             "C→/C← grid on one chunk")
+    log(f"[13] one chunk S={S} w={w_full}: B3's full square == B1's scattered "
+        f"C→/C← grid ({len(coords)} tiles of {T}) and counts, bit for bit")
+    return worst
+
+
+def phase_store(torch, np, dev, ops, ref, cfg, card, ctx, ds) -> dict:
+    """Phase 14: ``copyscore_store`` over the full pass's engine store, one
+    B3 launch per live chunk; a sample of chunks against the plain version;
+    the full square against the engine's scan grid at S=2048; and B3's
+    timing at the store's shapes."""
+    from repro_torch.core import DetectionEngine, build_index
+    from repro_torch.data.claims import (
+        SyntheticSpec,
+        oracle_claim_probs,
+        synthetic_claims,
+    )
+
+    kw = dict(s=cfg.s, n_false=cfg.n)
+    store, p_hat = ctx.ech.store, ctx.ech.p_hat
+    S, K, w = store.n_rows, store.n_chunks, store.chunk_entries
+    live = sum(bool((ch.item >= 0).any()) for ch in store.iter_chunks())
+    acc = torch.from_numpy(ds.accuracy.astype(np.float32)).to(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    ops.copyscore_store.launches = 0          # count the main path's launches
+    t0 = time.perf_counter()
+    ev[0].record()
+    c, n = ops.copyscore_store(store, p_hat, acc, **kw)
+    ev[1].record()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.copyscore_store.launches
+    if launches != live or launches <= 0:
+        raise AssertionError(f"copyscore_store launched {launches} times, "
+                             f"live chunks {live}")
+    if (tuple(c.shape) != (S, S) or not bool(torch.isfinite(c).all())
+            or not torch.equal(n, n.T)):
+        raise AssertionError("the full square is not a finite (S, S) C→ with "
+                             "a symmetric count")
+    log(f"[14] copyscore_store S={S} over {K} chunks of {w} ({live} live): "
+        f"{secs:.3f} s, {launches} launches, device {ev[0].elapsed_time(ev[1]):.3f} "
+        f"ms (CUDA events, staging included), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; ordered pairs "
+        f"sharing an entry {int((n > 0).sum().item()) - int((n.diagonal() > 0).sum().item())}")
+
+    worst = 0.0
+    for k in sorted({0, K // 2, K - 1}):
+        v = torch.from_numpy(store.chunks[k][:S]).to(dev)
+        p_k = torch.from_numpy(p_hat[k: k + 1].astype(np.float32)).to(dev)
+        e = _compare_single(torch, ops.copyscore(v, p_k, acc, block_e=w, **kw),
+                            ref.copyscore_torch(v, p_k, acc, block_e=w, **kw))
+        worst = max(worst, e)
+        log(f"[14] chunk {k}: kernel == plain (counts equal, max |Δ| C→ "
+            f"{e:.3e})")
+
+    # B3's timing at the store's shapes: one accumulating launch
+    k = K // 2
+    v = torch.from_numpy(store.chunks[k][:S]).to(dev)
+    p_k = torch.from_numpy(p_hat[k: k + 1].astype(np.float32)).to(dev)
+    small = ops._single_operands(v, v, acc, acc, p_k, None, w)
+    ms = _time_ms(torch, lambda: ops._launch_single(
+        v, v, small, (c, n), block_e=w, accumulate=True, **kw), 5)
+    plain_ms = _time_ms(torch, lambda: ref.copyscore_torch(
+        v, p_k, acc, block_e=w, **kw), 2)
+    int_mm_ms = _time_ms(torch, lambda: torch._int_mm(v, v.t()), 5)
+    nbytes = S * w + 4 * S + 4 + 2 * 2 * 4 * S * S
+    bound_ms, bound_by = _bound(nbytes, 2 * S * S * w,
+                                S * S * F32_PER_PAIR_BLOCK["copyscore"])
+    log(f"[14] B3 one accumulating launch S={S} w={w} ({card}): {ms:.4f} ms; "
+        f"plain version {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({nbytes} B, {2 * S * S * w} int8 operations); "
+        f"torch._int_mm {int_mm_ms:.4f} ms — count product only; square "
+        f"{launches} x {ms:.4f} = {launches * ms:.1f} ms")
+    del c, n, v, small
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the full square against the engine's scan grid on the S=2048 world
+    sc = synthetic_claims(SyntheticSpec(**WORLD_2048))
+    ds2, p2 = sc.dataset, oracle_claim_probs(sc)
+    eng = DetectionEngine(cfg)
+    ctx2 = eng._tiled_prologue(ds2, p2, build_index(ds2, p2, cfg, device=dev))
+    grids, _ = eng._run_tiled_scan(ctx2)
+    acc2 = torch.from_numpy(ds2.accuracy.astype(np.float32)).to(dev)
+    c2, n2 = ops.copyscore_store(ctx2.ech.store, ctx2.ech.p_hat, acc2, **kw)
+    S2, T, nb = ds2.n_sources, ctx2.T, ctx2.n_blocks
+    kept = torch.zeros((nb, nb), dtype=torch.bool, device=dev)
+    rc = torch.from_numpy(ctx2.coords).long().to(dev)
+    kept[rc[:, 0], rc[:, 1]] = True
+    kept[rc[:, 1], rc[:, 0]] = True
+    mask = kept.repeat_interleave(T, 0).repeat_interleave(T, 1)[:S2, :S2]
+    n_eng, c_eng = grids[1][:S2, :S2], grids[0][:S2, :S2]
+    if not torch.equal(n_eng[mask], n2[mask]) or bool((n_eng[~mask] != 0).any()):
+        raise AssertionError("S=2048: the full square's counts differ from the "
+                             "engine's scan grid on its kept tiles")
+    torch.testing.assert_close(c_eng[mask], c2[mask], rtol=RTOL, atol=ATOL)
+    e = float((c_eng[mask] - c2[mask]).abs().max())
+    log(f"[14] S={S2}: full-square n == the engine's scan grid n on its "
+        f"{len(ctx2.coords)}/{ctx2.tiles_total} kept tiles (both orientations; "
+        f"0 on the pruned ones), C→ max |Δ| {e:.3e} (bit-equal: "
+        f"{torch.equal(c_eng[mask], c2[mask])})")
+    for x in (ms, plain_ms, int_mm_ms, bound_ms):
+        if not math.isfinite(x) or x <= 0:
+            raise AssertionError("a timing is not a positive number")
+    return {"launches": launches, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_legacy(torch, np, dev, ops, ref, cfg, card) -> dict:
+    """Phase 15: the legacy per-ordered-tile dataflow (B2 per tile plus a
+    separate non-Ē count product) against the fused one (B1 over the
+    unordered tiles) at the JAX kernel bench's shapes; then B2's timing at
+    one tile's shapes."""
+    from repro_torch.core import bucketize_engine, build_index, pad_buckets
+    from repro_torch.core.scoring import bucket_score_deltas
+    from repro_torch.core.shardplan import scatter_tile_stacks
+    from repro_torch.data.claims import (
+        SyntheticSpec,
+        oracle_claim_probs,
+        synthetic_claims,
+    )
+
+    kw = dict(s=cfg.s, n_false=cfg.n)
+    sc = synthetic_claims(SyntheticSpec(**WORLD_2048))
+    ds, p = sc.dataset, oracle_claim_probs(sc)
+    b, p_lo, p_hi = bucketize_engine(build_index(ds, p, cfg, device=dev),
+                                     LEGACY_BUCKETS)
+    delta = bucket_score_deltas(b.p_hat, p_lo, p_hi, ds.accuracy, cfg)
+    padded = pad_buckets(b, dtype=torch.int8, device=dev)
+    K, S, w0 = padded.v_ksw.shape
+    T = LEGACY_TILE
+    nb = -(-S // T)
+    # both kernels read whole 32-bit words (B1 needs w % 8): the bucket width
+    # is padded up with inert zero columns
+    w = -(-w0 // 8) * 8
+    v = torch.zeros((nb * T, K, w), dtype=torch.int8, device=dev)
+    v[:S, :, :w0] = padded.v_ksw.permute(1, 0, 2)
+    acc = torch.full((nb * T,), 0.5, device=dev)
+    acc[:S] = torch.from_numpy(ds.accuracy.astype(np.float32)).to(dev)
+    p_hat = padded.p_hat
+    d = torch.from_numpy(np.asarray(delta, np.float32)).to(dev)
+    nout = (torch.arange(K, device=dev) < padded.ebar_bucket).to(torch.float32)
+    e_out = padded.ebar_bucket * w
+    ordered = [(r, c) for r in range(nb) for c in range(nb)]
+    tri = torch.tensor([rc for rc in ordered if rc[0] <= rc[1]],
+                       dtype=torch.int32, device=dev)
+
+    def rows(r):
+        return v[r * T:(r + 1) * T].reshape(T, K * w), acc[r * T:(r + 1) * T]
+
+    def legacy():
+        outs = []
+        for r, c in ordered:
+            (vr, a_r), (vc, a_c) = rows(r), rows(c)
+            cf, n, err = ops.copyscore_tile(vr, vc, p_hat, a_r, a_c,
+                                            block_e=w, delta_blk=d, **kw)
+            n_out = vr[:, :e_out].float() @ vc[:, :e_out].float().T
+            outs.append((cf, n, n_out, err))
+        return outs
+
+    def fused():
+        stacks = [torch.zeros((len(tri), T, T), device=dev) for _ in range(5)]
+        ops.tile_scores(v, acc, p_hat, d, nout, tri, stacks, tile=T, **kw)
+        return stacks
+
+    ops.copyscore_tile.launches = 0           # count the legacy path's launches
+    outs = legacy()
+    torch.cuda.synchronize()
+    launches = ops.copyscore_tile.launches
+    if launches != len(ordered):
+        raise AssertionError(f"the legacy scan launched B2 {launches} times, "
+                             f"not once per ordered tile ({len(ordered)})")
+    g_leg = [torch.zeros((nb * T, nb * T), device=dev) for _ in range(4)]
+    for (r, c), o in zip(ordered, outs):
+        for g, x in zip(g_leg, o):
+            g[r * T:(r + 1) * T, c * T:(c + 1) * T] = x
+    g_fus = [torch.zeros_like(g) for g in g_leg]
+    scatter_tile_stacks(g_fus, tri, fused(), nb, T)
+    torch.cuda.synchronize()
+    for i, name in ((1, "n"), (2, "n_out")):
+        if not torch.equal(g_leg[i], g_fus[i]):
+            raise AssertionError(f"legacy vs fused: {name} differs")
+    worst, bitwise = 0.0, []
+    for i in (0, 3):                                   # C→, err
+        torch.testing.assert_close(g_leg[i], g_fus[i], rtol=RTOL, atol=ATOL)
+        worst = max(worst, float((g_leg[i] - g_fus[i]).abs().max()))
+        bitwise.append(torch.equal(g_leg[i], g_fus[i]))
+    leg_ms = _time_ms(torch, legacy, 3)
+    fus_ms = _time_ms(torch, fused, 3)
+    log(f"[15] S={S} tile {T}, {K} buckets of {w0} (padded to {w}), int8: "
+        f"legacy {len(ordered)} B2 launches + non-Ē count products vs fused "
+        f"one B1 launch over {len(tri)} tiles; (C→, n, n_out, err) grids "
+        f"agree: counts equal, max |Δ| scores {worst:.3e} (C→, err bit-equal: "
+        f"{bitwise})")
+    log(f"[15] legacy {leg_ms:.3f} ms, fused {fus_ms:.3f} ms: the fused scan "
+        f"{leg_ms / fus_ms:.2f}x faster on the card ({card}); the JAX "
+        f"package's CPU run gave {LEGACY_CPU_SPEEDUPS} (a CPU number)")
+
+    # B2 at one ordered tile's shapes
+    (vr, a_r), (vc, a_c) = rows(0), rows(1)
+    ms = _time_ms(torch, lambda: ops.copyscore_tile(
+        vr, vc, p_hat, a_r, a_c, block_e=w, delta_blk=d, **kw), 20)
+    plain_ms = _time_ms(torch, lambda: ref.copyscore_torch(
+        vr, p_hat, a_r, v_cols=vc, acc_cols=a_c, delta_blk=d, block_e=w, **kw),
+        3)
+    int_mm_ms = _time_ms(torch, lambda: torch._int_mm(vr, vc.t()), 20)
+    E = K * w
+    nbytes = 2 * T * E + 2 * 4 * T + 2 * 4 * K + 3 * 4 * T * T
+    bound_ms, bound_by = _bound(nbytes, 2 * T * T * E,
+                                T * T * K * F32_PER_PAIR_BLOCK["copyscore_err"])
+    log(f"[15] B2 one tile {T}x{T}, E={E} ({K} blocks of {w}): {ms:.4f} ms; "
+        f"plain version {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+        f"{bound_by} ({nbytes} B); torch._int_mm {int_mm_ms:.4f} ms — count "
+        f"product only")
+    for x in (ms, plain_ms, int_mm_ms, bound_ms, leg_ms, fus_ms):
+        if not math.isfinite(x) or x <= 0:
+            raise AssertionError("a timing is not a positive number")
+    return {"launches": launches, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_mutation(torch, np, dev, ops, cfg) -> int:
+    """Phase 16: the mutation path on the card at S=512. After every step
+    of a commit / retract / rollback / compaction schedule, the bucketed
+    engine on the card over the mutated index decides like the exact INDEX
+    over a rebuild, and ``copyscore_store`` over the committed store counts
+    like its dense V·Vᵀ with one launch per chunk with a live entry.
+    Returns the store path's launches."""
+    from repro_torch.core import (
+        DetectionEngine,
+        build_index,
+        commit_rows,
+        compact_index,
+        index_detect_exact,
+        retract_rows,
+        rollback_commit,
+    )
+    from repro_torch.core.index import _segment_p_stats
+    from repro_torch.core.types import ClaimsDataset
+    from repro_torch.data.claims import (
+        SyntheticSpec,
+        oracle_claim_probs,
+        synthetic_claims,
+    )
+
+    sc = synthetic_claims(SyntheticSpec(**WORLD_512))
+    world, p_all = sc.dataset, oracle_claim_probs(sc)
+
+    def claims(rows):
+        return (ClaimsDataset(values=world.values[rows],
+                              accuracy=world.accuracy[rows]), p_all[rows])
+
+    rows = np.arange(MUTATION_BASE_ROWS)
+    idx = build_index(*claims(rows), cfg, chunk_entries=MUTATION_CHUNK,
+                      row_capacity=world.n_sources, device=dev)
+    q1, q2 = MUTATION_COMMITS
+    first = np.arange(MUTATION_BASE_ROWS, MUTATION_BASE_ROWS + q1)
+    receipts = []
+
+    def commit(q):
+        nonlocal rows
+        rows = np.arange(len(rows) + q)
+        receipts.append((commit_rows(idx, *claims(rows), cfg, q,
+                                     compact=False), rows[:-q]))
+
+    def retract():
+        nonlocal rows
+        gone = np.concatenate([[5, 300], first])
+        before = rows
+        rows = np.delete(rows, gone)
+        ds, _ = claims(rows)
+        receipts.append((retract_rows(idx, ds, cfg, gone), before))
+
+    def rollback():
+        nonlocal rows
+        info, rows = receipts.pop()
+        rollback_commit(idx, info)
+
+    steps = [(f"commit q={q1}", lambda: commit(q1)),
+             (f"commit q={q2}", lambda: commit(q2)),
+             (f"retract {len(first) + 2} rows", retract),
+             ("rollback the retraction", rollback),
+             (f"retract {len(first) + 2} rows again", retract),
+             ("compaction", lambda: compact_index(idx, cfg))]
+    launches, padding_seen = 0, 0
+    for name, step in steps:
+        step()
+        ds, p = claims(rows)
+        exact = index_detect_exact(ds, p, cfg,
+                                   index=build_index(ds, p, cfg, device=dev))
+        eng = DetectionEngine(cfg)
+        res = eng.detect(ds, p, index=idx)
+        if not np.array_equal(res.copying, exact.copying):
+            raise AssertionError(f"mutation step {name!r}: bucketed decisions "
+                                 f"on the card != exact INDEX over a rebuild")
+        if eng.last_stats["kernel_launches"] <= 0:
+            raise AssertionError(f"mutation step {name!r}: no B1 launch")
+        st = idx.store
+        widths = [c.shape[1] for c in st.chunks]
+        p_hat, _, _ = _segment_p_stats(st.entry_p, st.entry_item >= 0,
+                                       np.concatenate([[0], np.cumsum(widths)]))
+        live = sum(bool((ch.item >= 0).any()) for ch in st.iter_chunks())
+        acc = torch.from_numpy(ds.accuracy.astype(np.float32)).to(dev)
+        ops.copyscore_store.launches = 0
+        c, n = ops.copyscore_store(st, p_hat, acc, s=cfg.s, n_false=cfg.n)
+        torch.cuda.synchronize()
+        V = torch.from_numpy(st.to_dense()).to(dev).float()
+        if (ops.copyscore_store.launches != live
+                or not torch.equal(n, V @ V.T)
+                or not bool(torch.isfinite(c).all())):
+            raise AssertionError(f"mutation step {name!r}: copyscore_store "
+                                 f"counts or launches are wrong")
+        launches += live
+        padding_seen = max(padding_seen, st.n_chunks - live)
+        log(f"[16] {name}: S={st.n_rows} E={st.n_entries} chunks {st.n_chunks} "
+            f"({st.n_delta_chunks} delta, {st.n_chunks - live} all padding); "
+            f"bucketed on the card == exact INDEX over a rebuild "
+            f"({len(exact.copying_pairs())} copying pairs, B1 launches "
+            f"{eng.last_stats['kernel_launches']}); copyscore_store counts == "
+            f"V·Vᵀ, {live} launches == live chunks")
+    if not padding_seen:
+        raise AssertionError("the schedule left no all-padding chunk: the "
+                             "store path's skip was not exercised")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -864,10 +1339,7 @@ def main() -> int:
             f"pad slot untouched")
 
     # -- 4. decisions against the exact INDEX at S=512 ------------------------
-    spec512 = SyntheticSpec(n_sources=512, n_items=1536, coverage="book",
-                            n_cliques=14, clique_size=3, clique_items=12,
-                            seed=0)
-    sc = synthetic_claims(spec512)
+    sc = synthetic_claims(SyntheticSpec(**WORLD_512))
     p512 = oracle_claim_probs(sc)
     idx512 = build_index(sc.dataset, p512, cfg, device=dev)
     exact = index_detect_exact(sc.dataset, p512, cfg, index=idx512)
@@ -884,9 +1356,7 @@ def main() -> int:
             f"{eng.last_stats['tiles_kept']}/{eng.last_stats['tiles_total']}")
     # S=2048 under a 1 MiB cap on every incidence allocation and group slab
     cap = 1 << 20
-    sc = synthetic_claims(SyntheticSpec(
-        n_sources=2048, n_items=3072, coverage="book", n_cliques=50,
-        clique_size=3, clique_items=12, seed=0))
+    sc = synthetic_claims(SyntheticSpec(**WORLD_2048))
     p2k = oracle_claim_probs(sc)
     idx2k = build_index(sc.dataset, p2k, cfg, chunk_bytes=cap, device=dev)
     largest = max(c.nbytes for c in idx2k.store.chunks)
@@ -1006,9 +1476,25 @@ def main() -> int:
             raise AssertionError("a timing is not a positive number")
     b1 = {"launches": launches, "max_abs_err": worst, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-    # the detection pass's data leave the card before the LM phases
-    del (sc, ds, p, index, eng, res, ctx, groups, host, acc, v, p_g, d_g, o_g,
-         coords_g, stacks, args, v2, idx512, idx2k, p512, p2k, exact)
+    del (groups, host, acc, v, p_g, d_g, o_g, coords_g, stacks, args, v2,
+         idx512, idx2k, p512, p2k, exact)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 13. B2/B3 vs plain, and B3 vs B1's scatter on one chunk -------------
+    worst_single = phase_copyscore_cases(torch, dev, ops, ref, cfg, w_full)
+
+    # -- 14. copyscore_store over the full pass's store (B3) -----------------
+    b3 = phase_store(torch, np, dev, ops, ref, cfg, card, ctx, ds)
+
+    # -- 15. the legacy per-tile dataflow (B2) against the fused one ---------
+    b2 = phase_legacy(torch, np, dev, ops, ref, cfg, card)
+
+    # -- 16. the mutation path at S=512 --------------------------------------
+    phase_mutation(torch, np, dev, ops, cfg)
+
+    # the detection side's data leave the card before the LM phases
+    del sc, ds, p, index, eng, res, ctx
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1042,6 +1528,15 @@ def main() -> int:
             "max_abs_err": max(bwd_worst[key], bt[key]["max_abs_err"]),
         })
 
+    single = [{
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/copyscore.cu",
+        "replaces": f"src/repro/kernels/copyscore.py:{line}",
+        **rec,
+        "max_abs_err": max(rec["max_abs_err"], worst_single[name]),
+        "library_ms": None,
+    } for name, line, rec in (("copyscore_err", 89, b2), ("copyscore", 67, b3))]
     record = {"kernels": [{
         "name": "copyscore_fused",
         "route": "cuda",
@@ -1049,7 +1544,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/copyscore.py:192",
         **b1,
         "library_ms": None,
-    }, {
+    }, *single, {
         "name": "flash_attention_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",

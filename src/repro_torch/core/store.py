@@ -12,11 +12,21 @@ from it and ships one chunk (group) at a time to the device. The layout and
 ``state_dict`` keys are those of the JAX package's ``CorpusStore``, so an
 index captured there loads here bit-exactly.
 
-This slice carries what the build and the scan use; row and entry mutation
-(``append_rows``, ``retract_rows``, delta chunks) is not carried yet.
+Mutation is append-commit-compact, as in the JAX package: ``append_rows``
+/ ``truncate_rows`` stage query rows in the row slack; ``append_entries``
+grows the entry axis with **delta chunks** (the last resident chunk is
+padded to full width with inert columns first, so the uniform
+``chunk_start`` addressing survives); ``retract_rows`` and
+``deactivate_entries`` remove sources and retire entries. No mutation
+writes a captured array in place, so ``snapshot()`` is a list of array
+references and ``StoreSnapshot.restore`` is bit-exact. ``epoch`` counts
+structural mutations, and chunk handles are memoized per ``(epoch,
+n_rows)``; ``mseq`` names one membership state for the life of the
+process. Bitpacked membership (the shard plane's) is not carried yet.
 """
 from __future__ import annotations
 
+import itertools
 from dataclasses import dataclass, field
 from typing import Iterator, Optional
 
@@ -33,6 +43,18 @@ STORE_LAYOUT_VERSION = 1
 def align_chunk(width: int) -> int:
     """Round a requested chunk width up to the kernel tile-edge multiple (8)."""
     return max(8, -(-int(width) // 8) * 8)
+
+
+#: Global monotonic mutation-sequence source. Every store mutation, and
+#: every snapshot restore, draws a fresh value, so ``(store identity, mseq)``
+#: names one membership state for the life of the process: no rollback can
+#: bring back a previously seen mseq with different bits.
+_MSEQ = itertools.count(1)
+
+
+def next_mseq() -> int:
+    """Draw the next globally unique mutation-sequence number."""
+    return next(_MSEQ)
 
 
 @dataclass
@@ -85,6 +107,11 @@ class CorpusStore:
             self.entry_score = np.zeros(0, np.float32)
         if self.capacity < self.n_rows:
             self.capacity = self.n_rows
+        # per-(epoch, n_rows) memo of ChunkView handles
+        self._views: dict = {}
+        self._views_key = None
+        # membership-state identity; not a field and not serialized
+        self.mseq = next_mseq()
 
     # -- geometry -----------------------------------------------------------
 
@@ -98,18 +125,61 @@ class CorpusStore:
         """Number of entry chunks."""
         return len(self.chunks)
 
+    def release_chunk(self, c: int) -> None:
+        """Free chunk ``c``'s incidence block, irreversibly: any later read
+        of it raises instead of returning stale or zero incidence."""
+        self.chunks[int(c)] = None
+        self._views = {}
+        self._views_key = None
+
+    @property
+    def n_live_entries(self) -> int:
+        """Entries that are real (non-padding) columns."""
+        return int(np.count_nonzero(self.entry_item >= 0))
+
+    @property
+    def n_delta_entries(self) -> int:
+        """Live entries in the delta region (appended since the last base)."""
+        if self.delta_start is None:
+            return 0
+        return int(np.count_nonzero(self.entry_item[self.delta_start:] >= 0))
+
+    @property
+    def n_delta_chunks(self) -> int:
+        """Chunks that hold at least one delta entry."""
+        if self.delta_start is None:
+            return 0
+        return self.n_chunks - self.delta_start // self.chunk_entries
+
     def chunk_start(self, c: int) -> int:
         """Global index of chunk ``c``'s first entry column."""
         return c * self.chunk_entries
 
     def chunk(self, c: int) -> ChunkView:
-        """Chunk ``c`` as a handle: live rows + metadata views (zero copy)."""
-        s0 = self.chunk_start(c)
-        s1 = s0 + self.chunks[c].shape[1]
-        return ChunkView(start=s0, V=self.chunks[c][: self.n_rows],
-                         item=self.entry_item[s0:s1],
-                         value=self.entry_value[s0:s1],
-                         p=self.entry_p[s0:s1], score=self.entry_score[s0:s1])
+        """Chunk ``c`` as a handle: live rows + metadata views (zero copy).
+
+        Handles are memoized per ``(epoch, n_rows)``: within one epoch the
+        same ``ChunkView`` object comes back on every access. Structural
+        mutations bump ``epoch`` and row staging changes ``n_rows``; either
+        drops the memo.
+        """
+        key = (self.epoch, self.n_rows)
+        if self._views_key != key:
+            self._views = {}
+            self._views_key = key
+        view = self._views.get(c)
+        if view is None:
+            if self.chunks[c] is None:
+                raise RuntimeError(f"chunk {c} was released (release_chunk)")
+            s0 = self.chunk_start(c)
+            s1 = s0 + self.chunks[c].shape[1]
+            view = ChunkView(start=s0, V=self.chunks[c][: self.n_rows],
+                             item=self.entry_item[s0:s1],
+                             value=self.entry_value[s0:s1],
+                             p=self.entry_p[s0:s1],
+                             score=self.entry_score[s0:s1])
+            self._views[c] = view
+        return view
 
     def iter_chunks(self) -> Iterator[ChunkView]:
         """Iterate chunk handles in entry order."""
@@ -127,6 +197,30 @@ class CorpusStore:
         """S̄(E) — indices of the sources providing entry ``e``'s value."""
         return np.nonzero(self.column(e))[0]
 
+    def slice_entries(self, e0: int, e1: int, dtype=np.int8,
+                      rows: Optional[int] = None) -> np.ndarray:
+        """Dense ``(rows, e1 − e0)`` copy of an entry range across chunks.
+
+        Meant for narrow ranges (one bucket, one kernel block): the result
+        is a fresh allocation of exactly the requested width. ``rows``
+        defaults to the live rows; rows past them read zero.
+        """
+        e0, e1 = int(e0), int(e1)
+        n = self.n_rows if rows is None else int(rows)
+        out = np.zeros((n, e1 - e0), dtype=dtype)
+        w = self.chunk_entries
+        live = min(n, self.n_rows)
+        for c in range(e0 // w if w else 0, self.n_chunks):
+            s0 = self.chunk_start(c)
+            if s0 >= e1:
+                break
+            s1 = s0 + self.chunks[c].shape[1]
+            lo, hi = max(e0, s0), min(e1, s1)
+            if lo < hi:
+                out[:live, lo - e0: hi - e0] = \
+                    self.chunks[c][:live, lo - s0: hi - s0]
+        return out
+
     def to_dense(self) -> np.ndarray:
         """The full ``(n_rows, E)`` incidence — compat/debug accessor ONLY.
 
@@ -139,6 +233,32 @@ class CorpusStore:
             return np.zeros((self.n_rows, 0), np.int8)
         return np.concatenate(
             [c[: self.n_rows] for c in self.chunks], axis=1)
+
+    def cooccurrence(self, stop: Optional[int] = None, dtype=np.float32,
+                     mask: Optional[np.ndarray] = None) -> np.ndarray:
+        """Pair co-occurrence counts Σ_e V[i,e]·V[j,e] over selected entries.
+
+        ``stop`` keeps the prefix ``[:stop]``; ``mask`` (an (E,) bool array)
+        keeps an arbitrary entry subset instead (the form Ē takes once delta
+        chunks make it a mask). Accumulated chunk by chunk; 0/1 products in
+        float32 are exact integers below 2²⁴, so the result is bit-equal to
+        the dense product for any chunking.
+        """
+        S = self.n_rows
+        out = np.zeros((S, S), dtype)
+        stop = self.n_entries if stop is None else int(stop)
+        for ch in self.iter_chunks():
+            if mask is not None:
+                m = mask[ch.start: ch.start + ch.width]
+                if not m.any():
+                    continue
+                v = (ch.V if m.all() else ch.V[:, m]).astype(dtype)
+            elif ch.start >= stop:
+                break
+            else:
+                v = ch.V[:, : min(ch.width, stop - ch.start)].astype(dtype)
+            out += v @ v.T
+        return out
 
     # -- derived stores -----------------------------------------------------
 
@@ -200,6 +320,219 @@ class CorpusStore:
                            entry_p=p, entry_score=score, chunk_entries=w,
                            n_rows=self.n_rows, capacity=cap)
 
+    # -- row mutation -------------------------------------------------------
+
+    def append_rows(self, values_rows: np.ndarray,
+                    collect_touched: bool = False):
+        """Write incidence rows for new sources into the slack capacity.
+
+        ``values_rows`` is ``(q, D)`` int32 in the corpus's value coding. For
+        every existing entry (D_E, v_E) a new row's membership bit is set
+        where its claim matches: one ``(q, width)`` comparison per chunk, so
+        the cost is O(q·E), independent of the corpus rows. Values the new
+        rows share only with each other (or that turn a singleton into a
+        shared value) are not entries yet: ``index.commit_rows`` appends
+        them as delta chunks, and needs the entries whose provider set grew
+        — ``collect_touched=True`` returns ``(bits, touched_entry_ids)``
+        instead of the bare bit count.
+        """
+        values_rows = np.asarray(values_rows, np.int32)
+        q = values_rows.shape[0]
+        if self.n_rows + q > self.capacity:
+            raise ValueError(
+                f"append_rows: {q} rows exceed capacity "
+                f"({self.n_rows}/{self.capacity} used)")
+        bits = 0
+        touched = []
+        for c in range(self.n_chunks):
+            s0 = self.chunk_start(c)
+            s1 = s0 + self.chunks[c].shape[1]
+            it = self.entry_item[s0:s1]
+            va = self.entry_value[s0:s1]
+            ok = it >= 0
+            hit = np.zeros((q, s1 - s0), np.int8)
+            if ok.any() and q:
+                hit[:, ok] = (values_rows[:, it[ok]] == va[ok][None, :]
+                              ).astype(np.int8)
+            self.chunks[c][self.n_rows: self.n_rows + q] = hit
+            bits += int(hit.sum())
+            if collect_touched:
+                touched.append(s0 + np.nonzero(hit.any(axis=0))[0])
+        self.n_rows += q
+        self.mseq = next_mseq()
+        if collect_touched:
+            return bits, (np.concatenate(touched) if touched
+                          else np.zeros(0, np.int64))
+        return bits
+
+    def truncate_rows(self, n_rows: int) -> None:
+        """Drop appended rows back down to ``n_rows`` (zeroing their slack)."""
+        n_rows = int(n_rows)
+        if n_rows > self.n_rows:
+            raise ValueError(f"truncate_rows({n_rows}) above n_rows={self.n_rows}")
+        for c in self.chunks:
+            c[n_rows: self.n_rows] = 0
+        self.n_rows = n_rows
+        self.mseq = next_mseq()
+
+    def retract_rows(self, row_ids: np.ndarray) -> None:
+        """Remove arbitrary live rows (source retraction).
+
+        Every chunk is replaced by a fresh array holding the surviving rows
+        compacted upward, so the row axis stays dense and ``n_rows`` drops
+        by the number of distinct ids; capacity is kept. The old chunk
+        arrays are never written, so a snapshot taken before stays valid.
+        Bumps ``epoch``. Entries left with fewer than two providers are the
+        caller's to retire (``index.retract_rows``).
+        """
+        row_ids = np.unique(np.asarray(row_ids, np.int64))
+        if len(row_ids) == 0:
+            return
+        if row_ids[0] < 0 or row_ids[-1] >= self.n_rows:
+            raise ValueError(
+                f"retract_rows: ids out of range [0, {self.n_rows})")
+        keep = np.ones(self.n_rows, bool)
+        keep[row_ids] = False
+        n_keep = int(keep.sum())
+        for c in range(self.n_chunks):
+            blk = np.zeros((self.capacity, self.chunks[c].shape[1]), np.int8)
+            blk[:n_keep] = self.chunks[c][: self.n_rows][keep]
+            self.chunks[c] = blk
+        self.n_rows = n_keep
+        self.epoch += 1
+        self.mseq = next_mseq()
+
+    def deactivate_entries(self, entry_ids: np.ndarray) -> None:
+        """Turn entry columns into inert padding (retraction's GC).
+
+        An entry left with fewer than two providers is no longer a shared
+        value (Def. 3.2) and leaves the index as a rebuild would drop it:
+        its incidence is zeroed and its metadata set to the padding
+        convention (item/value −1, p/score 0). Copy-on-write on the affected
+        chunks and the metadata arrays, so a snapshot taken before stays
+        valid. Bumps ``epoch``.
+        """
+        entry_ids = np.asarray(entry_ids, np.int64)
+        if len(entry_ids) == 0:
+            return
+        w = self.chunk_entries
+        for cid in np.unique(entry_ids // w):
+            cols = entry_ids[entry_ids // w == cid] - cid * w
+            blk = self.chunks[cid].copy()
+            blk[:, cols] = 0
+            self.chunks[int(cid)] = blk
+        item = self.entry_item.copy()
+        value = self.entry_value.copy()
+        p = self.entry_p.copy()
+        score = self.entry_score.copy()
+        item[entry_ids] = -1
+        value[entry_ids] = -1
+        p[entry_ids] = 0.0
+        score[entry_ids] = 0.0
+        self.entry_item, self.entry_value = item, value
+        self.entry_p, self.entry_score = p, score
+        self.epoch += 1
+        self.mseq = next_mseq()
+
+    # -- entry mutation (delta chunks) ---------------------------------------
+
+    def _pad_last_chunk_full(self) -> None:
+        """Pad the trailing chunk to the uniform width with inert columns,
+        so ``chunk_start(c) = c·chunk_entries`` stays valid once delta
+        chunks follow a partial base chunk. A padded copy replaces the
+        chunk array, which is not written, so a snapshot stays bit-exact."""
+        if not self.chunks:
+            return
+        last = self.chunks[-1]
+        w = last.shape[1]
+        if w == self.chunk_entries:
+            return
+        pad = self.chunk_entries - w
+        blk = np.zeros((last.shape[0], self.chunk_entries), np.int8)
+        blk[:, :w] = last
+        self.chunks[-1] = blk
+        self.entry_item = np.concatenate(
+            [self.entry_item, np.full(pad, -1, np.int32)])
+        self.entry_value = np.concatenate(
+            [self.entry_value, np.full(pad, -1, np.int32)])
+        self.entry_p = np.concatenate(
+            [self.entry_p, np.zeros(pad, np.float32)])
+        self.entry_score = np.concatenate(
+            [self.entry_score, np.zeros(pad, np.float32)])
+
+    def append_entries(self, cols: np.ndarray, item, value, p, score) -> int:
+        """Append new entry columns as delta chunks.
+
+        ``cols`` is ``(n_rows, n_new)`` int8 incidence over the live rows,
+        ordered by decreasing contribution score (the within-delta
+        BYCONTRIBUTION order). The last resident chunk is first padded to
+        the uniform width with inert columns; the new columns land in fresh
+        ``(capacity, chunk_entries)`` blocks, and the resident incidence is
+        never re-sorted or re-copied. Returns the number of delta chunks
+        added. Bumps ``epoch``.
+        """
+        cols = np.asarray(cols, np.int8)
+        n_new = cols.shape[1]
+        if n_new == 0:
+            return 0
+        if cols.shape[0] != self.n_rows:
+            raise ValueError(
+                f"append_entries: {cols.shape[0]} rows, store has {self.n_rows}")
+        self._pad_last_chunk_full()
+        if self.delta_start is None:
+            self.delta_start = self.n_entries
+        w = self.chunk_entries
+        added = 0
+        for j0 in range(0, n_new, w):
+            width = min(w, n_new - j0)
+            blk = np.zeros((self.capacity, width), np.int8)
+            blk[: self.n_rows] = cols[:, j0: j0 + width]
+            self.chunks.append(blk)
+            added += 1
+        self.entry_item = np.concatenate(
+            [self.entry_item, np.asarray(item, np.int32)])
+        self.entry_value = np.concatenate(
+            [self.entry_value, np.asarray(value, np.int32)])
+        self.entry_p = np.concatenate(
+            [self.entry_p, np.asarray(p, np.float32)])
+        self.entry_score = np.concatenate(
+            [self.entry_score, np.asarray(score, np.float32)])
+        self.epoch += 1
+        self.mseq = next_mseq()
+        return added
+
+    def ensure_row_capacity(self, n: int) -> None:
+        """Grow every chunk's row capacity to at least ``n`` (geometric).
+
+        Reallocates each chunk once, copying only the live rows; a no-op
+        when the capacity already suffices. Bumps ``epoch`` (views alias the
+        old arrays) but not ``mseq``: growth keeps membership as it is.
+        """
+        if n <= self.capacity:
+            return
+        new_cap = max(int(n), 2 * self.capacity)
+        for c in range(self.n_chunks):
+            blk = np.zeros((new_cap, self.chunks[c].shape[1]), np.int8)
+            blk[: self.n_rows] = self.chunks[c][: self.n_rows]
+            self.chunks[c] = blk
+        self.capacity = new_cap
+        self.epoch += 1
+
+    def snapshot(self) -> "StoreSnapshot":
+        """A rollback point: array references, not copies (O(chunks)).
+
+        Valid because no mutation writes an existing entry column in place:
+        entry mutations replace chunk and metadata arrays with extended
+        copies, and row staging writes only rows ≥ ``n_rows``, which
+        ``StoreSnapshot.restore`` zeroes back.
+        """
+        return StoreSnapshot(
+            store=self, chunks=list(self.chunks), entry_item=self.entry_item,
+            entry_value=self.entry_value, entry_p=self.entry_p,
+            entry_score=self.entry_score, n_rows=self.n_rows,
+            capacity=self.capacity, delta_start=self.delta_start,
+            epoch=self.epoch)
+
     # -- (de)serialization --------------------------------------------------
 
     def state_dict(self, prefix: str = "store/") -> dict:
@@ -258,6 +591,28 @@ class CorpusStore:
     # -- constructors -------------------------------------------------------
 
     @classmethod
+    def from_dense(cls, V: np.ndarray, entry_item, entry_value, entry_p,
+                   entry_score, chunk_entries: Optional[int] = None,
+                   capacity: Optional[int] = None) -> "CorpusStore":
+        """Wrap a dense ``(S, E)`` incidence (tests, reorders). The default
+        keeps one chunk spanning all entries, so ``to_dense()`` stays a
+        view."""
+        S, E = V.shape
+        cap = S if capacity is None else int(capacity)
+        w = max(E, 1) if chunk_entries is None else align_chunk(chunk_entries)
+        chunks = []
+        for j0 in range(0, E, w):
+            blk = np.zeros((cap, min(w, E - j0)), np.int8)
+            blk[:S] = V[:, j0: j0 + blk.shape[1]]
+            chunks.append(blk)
+        return cls(chunks=chunks,
+                   entry_item=np.asarray(entry_item, np.int32),
+                   entry_value=np.asarray(entry_value, np.int32),
+                   entry_p=np.asarray(entry_p, np.float32),
+                   entry_score=np.asarray(entry_score, np.float32),
+                   chunk_entries=w, n_rows=S, capacity=cap)
+
+    @classmethod
     def from_claim_coords(cls, src: np.ndarray, col: np.ndarray,
                           n_rows: int, entry_item, entry_value, entry_p,
                           entry_score, chunk_entries: int,
@@ -310,5 +665,47 @@ def _nonzero_2d(blk: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return flat // w, flat % w
 
 
-__all__ = ["CorpusStore", "ChunkView", "DEFAULT_CHUNK_ENTRIES",
-           "STORE_LAYOUT_VERSION", "align_chunk"]
+@dataclass
+class StoreSnapshot:
+    """Rollback point for one ``CorpusStore`` (refs captured by ``snapshot``)."""
+
+    store: "CorpusStore"
+    chunks: list
+    entry_item: np.ndarray
+    entry_value: np.ndarray
+    entry_p: np.ndarray
+    entry_score: np.ndarray
+    n_rows: int
+    capacity: int
+    delta_start: Optional[int]
+    epoch: int
+
+    def restore(self) -> None:
+        """Put the captured store back to its snapshot state, bit-exact.
+
+        Restores the array references — ``capacity`` with them, since an
+        ``ensure_row_capacity`` in between swapped in larger chunks and a
+        grown capacity over the restored arrays would let ``append_rows``
+        write past them — then zeroes the row slack of every chunk (staged
+        rows were written in place). Draws a fresh ``mseq``: a restored
+        state never aliases one seen before.
+        """
+        st = self.store
+        st.chunks = list(self.chunks)
+        st.capacity = self.capacity
+        st.entry_item = self.entry_item
+        st.entry_value = self.entry_value
+        st.entry_p = self.entry_p
+        st.entry_score = self.entry_score
+        st.delta_start = self.delta_start
+        st.epoch = self.epoch
+        st.n_rows = self.n_rows
+        st.mseq = next_mseq()
+        st._views = {}
+        st._views_key = None
+        for c in st.chunks:
+            c[self.n_rows:] = 0
+
+
+__all__ = ["CorpusStore", "ChunkView", "StoreSnapshot", "DEFAULT_CHUNK_ENTRIES",
+           "STORE_LAYOUT_VERSION", "align_chunk", "next_mseq"]

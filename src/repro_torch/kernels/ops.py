@@ -12,6 +12,18 @@
                            package's ``ops.copyscore_tile_fused``, on the same
                            dispatch.
 
+``copyscore``            — C→ and shared counts over the full S×S square;
+``copyscore_tile``       — one rectangular pair tile, rows copy from
+                           columns, with the error channel when given δ;
+``copyscore_store``      — the full square streamed from a chunked
+                           ``CorpusStore``, one launch per live chunk,
+                           accumulated on the device. All three reach one
+                           hand-written kernel (``csrc/copyscore.cu``: B3,
+                           and B2 with the error channel) on a CUDA tensor,
+                           and ``ref.copyscore_torch`` on a CPU tensor.
+``pad_for_copyscore``    — host-side padding of buckets and rows to kernel
+                           block multiples.
+
 ``flash_attention_fwd``  — attention forward (o, lse) with causal masking,
                            a sliding window and GQA: a CPU tensor takes the
                            plain version (``ref.flash_attention_fwd_torch``);
@@ -31,15 +43,17 @@
                            is the plain ``ref.attention_ref`` (differentiated
                            by autograd).
 
-``tile_scores.launches``, ``flash_attention_fwd.launches``,
-``flash_attention_bwd_dq.launches`` and ``flash_attention_bwd_dkv.launches``
-count the kernel launches of this process (plain integers; a caller resets
-one to 0 to count a run).
+``tile_scores.launches``, ``copyscore.launches``,
+``copyscore_tile.launches``, ``copyscore_store.launches``,
+``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches`` and
+``flash_attention_bwd_dkv.launches`` count the kernel launches of this
+process (plain integers; a caller resets one to 0 to count a run).
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
@@ -169,6 +183,247 @@ def copyscore_tile_fused(v_rows, v_cols, p_blk, acc_rows, acc_cols, *,
                 blocks(nout_blk, 1.0), coords, stacks, tile=T, s=s,
                 n_false=n_false)
     return tuple(st[0] for st in stacks)
+
+
+# ---------------------------------------------------------------------------
+# single-direction copyscore: the full square, one pair tile, a chunked store
+# ---------------------------------------------------------------------------
+
+#: the kernel's grid holds at most 65535 row blocks of 64
+_MAX_ROWS = 65535 * 64
+
+
+def _single_lib() -> ctypes.CDLL:
+    lib = _build.load("copyscore")
+    fn = lib.copyscore_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        lib.copyscore_single_error_string.restype = ctypes.c_char_p
+        lib.copyscore_single_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _as_blocks(x, n, dev, name):
+    """A per-row or per-block float32 vector of length ``n`` on ``dev``."""
+    t = torch.as_tensor(x).to(device=dev, dtype=torch.float32).contiguous()
+    if tuple(t.shape) != (n,):
+        raise ValueError(f"{name} must have shape ({n},), got {tuple(t.shape)}")
+    return t
+
+
+def _single_operands(v_rows, v_cols, acc_rows, acc_cols, p_blk, delta_blk,
+                     block_e):
+    """Check the incidence of one pair block; return its small operands as
+    float32 vectors on its device. Raises on anything the kernel (on a CUDA
+    tensor) or the plain version (on a CPU tensor) does not take."""
+    if v_rows.dim() != 2 or v_cols.dim() != 2 or v_rows.shape[1] != v_cols.shape[1]:
+        raise ValueError(f"need (S_i, E) and (S_j, E) incidence, got "
+                         f"{tuple(v_rows.shape)} and {tuple(v_cols.shape)}")
+    E = v_rows.shape[1]
+    if block_e <= 0 or E % block_e:
+        raise ValueError(f"E={E} must be a multiple of block_e={block_e}")
+    dev = v_rows.device
+    if v_cols.device != dev:
+        raise ValueError(f"v_cols is on {v_cols.device}, v_rows on {dev}")
+    n_e = E // block_e
+    small = (_as_blocks(acc_rows, v_rows.shape[0], dev, "acc_rows"),
+             _as_blocks(acc_cols, v_cols.shape[0], dev, "acc_cols"),
+             _as_blocks(p_blk, n_e, dev, "p_blk"),
+             None if delta_blk is None
+             else _as_blocks(delta_blk, n_e, dev, "delta_blk"))
+    if dev.type == "cpu":
+        return small
+    if dev.type != "cuda":
+        raise ValueError(f"copyscore runs on cpu or cuda, not {dev}")
+    for name, t in (("v_rows", v_rows), ("v_cols", v_cols)):
+        if t.dtype != torch.int8 or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous int8 on the card, got "
+                             f"{t.dtype}")
+        if t.shape[0] > _MAX_ROWS or t.data_ptr() % 4:
+            raise ValueError(f"{name}: at most {_MAX_ROWS} rows, starting on a "
+                             f"4-byte boundary")
+    if block_e % 4:
+        raise ValueError(f"the kernel reads 4 entries a word: block_e={block_e} "
+                         f"must be a multiple of 4 (pad_for_copyscore pads "
+                         f"buckets to such a width)")
+    return small
+
+
+def _launch_single(v_rows, v_cols, small, outs, *, block_e: int,
+                   accumulate: bool, s: float, n_false: float) -> None:
+    """Launch ``csrc/copyscore.cu`` over one pair block on the current
+    stream of its device: ``outs`` = (C→, n) selects B3, (C→, n, err) B2;
+    written, or added to with ``accumulate``. Raises on a CUDA error."""
+    acc_rows, acc_cols, p_blk, delta_blk = small
+    lib = _single_lib()
+    dev = v_rows.device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.copyscore_launch(
+            v_rows.data_ptr(), v_cols.data_ptr(), acc_rows.data_ptr(),
+            acc_cols.data_ptr(), p_blk.data_ptr(),
+            None if delta_blk is None else delta_blk.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(),
+            outs[2].data_ptr() if len(outs) == 3 else None,
+            v_rows.shape[0], v_cols.shape[0], v_rows.shape[1] // block_e,
+            block_e, int(accumulate), float(s), float(1.0 - s), float(n_false),
+            stream)
+    if code != 0:
+        raise RuntimeError(f"copyscore launch failed: "
+                           f"{lib.copyscore_single_error_string(code).decode()}")
+
+
+def _pair_block(v_rows, v_cols, p_blk, acc_rows, acc_cols, *, s, n_false,
+                block_e, delta_blk):
+    """One pair block, rows copy from columns: the plain version on a CPU
+    tensor, else one kernel launch into fresh outputs. Returns (C→, n) or
+    (C→, n, err), and whether the kernel was launched."""
+    v_rows, v_cols = torch.as_tensor(v_rows), torch.as_tensor(v_cols)
+    small = _single_operands(v_rows, v_cols, acc_rows, acc_cols, p_blk,
+                             delta_blk, block_e)
+    if v_rows.device.type == "cpu":
+        a_r, a_c, p, d = small
+        return kref.copyscore_torch(v_rows, p, a_r, s=s, n_false=n_false,
+                                    block_e=block_e, v_cols=v_cols,
+                                    acc_cols=a_c, delta_blk=d), False
+    shape = (v_rows.shape[0], v_cols.shape[0])
+    empty = v_rows.shape[1] == 0                 # no entry block: all zero
+    outs = tuple((torch.zeros if empty else torch.empty)(
+        shape, dtype=torch.float32, device=v_rows.device)
+        for _ in range(2 if delta_blk is None else 3))
+    if empty:
+        return outs, False
+    _launch_single(v_rows, v_cols, small, outs, block_e=block_e,
+                   accumulate=False, s=s, n_false=n_false)
+    return outs, True
+
+
+def pad_for_copyscore(v: np.ndarray, p_blk: np.ndarray, block_i: int,
+                      block_e: int, bucket_sizes=None):
+    """Pad the incidence matrix to kernel block multiples (host numpy).
+
+    With ``bucket_sizes`` (entries grouped by representative p) each bucket
+    is zero-padded independently to a ``block_e`` multiple, so every entry
+    block has one p̂; otherwise entries must already be block-aligned. Rows
+    are padded to a ``block_i`` multiple. Zero columns and rows are inert.
+    Returns (v_pad, p_blk_pad, S_orig), as the JAX package's does.
+    """
+    S, E = v.shape
+    if bucket_sizes is not None:
+        cols, pb = [], []
+        off = 0
+        for k, size in enumerate(bucket_sizes):
+            blk = v[:, off: off + size]
+            pad = (-size) % block_e
+            if pad:
+                blk = np.pad(blk, ((0, 0), (0, pad)))
+            cols.append(blk)
+            pb.extend([p_blk[k]] * (blk.shape[1] // block_e))
+            off += size
+        v = np.concatenate(cols, axis=1) if cols else v
+        p_blk = np.asarray(pb, dtype=np.float32)
+    s_pad = (-S) % block_i
+    if s_pad:
+        v = np.pad(v, ((0, s_pad), (0, 0)))
+    return v, p_blk, S
+
+
+def copyscore(v, p_blk, acc, *, s: float, n_false: float, block_i: int = 128,
+              block_j: int = 128, block_e: int = 512):
+    """C_same→ and shared counts over the whole index: the full S×S square,
+    each (S, S) float32.
+
+    ``v`` (S, E) incidence with entries bucket-aligned in p (E a multiple of
+    ``block_e``; one p̂ per block in ``p_blk``), ``acc`` (S,) accuracies. A
+    CPU tensor (or a numpy array) takes ``ref.copyscore_torch``; a CUDA
+    tensor launches the hand-written kernel (``csrc/copyscore.cu``, int8
+    incidence, ``block_e`` a multiple of 4) or raises. ``block_i`` and
+    ``block_j`` are the JAX signature's Pallas tile; the kernel masks ragged
+    edges in its own 64×64 blocks, so they change nothing here.
+    """
+    out, launched = _pair_block(v, v, p_blk, acc, acc, s=s, n_false=n_false,
+                                block_e=block_e, delta_blk=None)
+    copyscore.launches += launched
+    return out
+
+
+copyscore.launches = 0
+
+
+def copyscore_tile(v_rows, v_cols, p_blk, acc_rows, acc_cols, *, s: float,
+                   n_false: float, block_i: int = 128, block_j: int = 128,
+                   block_e: int = 512, delta_blk=None):
+    """One rectangular tile of the pair space, rows copy from columns:
+    (C_same→, n), or (C_same→, n, err) with ``delta_blk`` (each
+    (T_r, T_c) float32) — the per-ordered-tile dataflow that the fused
+    kernel replaced, kept as its baseline.
+
+    ``v_rows`` (T_r, E) and ``v_cols`` (T_c, E) incidence, each bucket
+    zero-padded to ``block_e`` so that an entry block carries one p̂ (and
+    one error bound δ). A CPU tensor takes ``ref.copyscore_torch``; a CUDA
+    tensor launches the kernel (``csrc/copyscore.cu``: B2 with
+    ``delta_blk``, B3 without) or raises. ``block_i``/``block_j`` as in
+    ``copyscore``.
+    """
+    out, launched = _pair_block(v_rows, v_cols, p_blk, acc_rows, acc_cols,
+                                s=s, n_false=n_false, block_e=block_e,
+                                delta_blk=delta_blk)
+    copyscore_tile.launches += launched
+    return out
+
+
+copyscore_tile.launches = 0
+
+
+def copyscore_store(store, p_hat, acc, *, s: float, n_false: float,
+                    block_i: int = 128, block_j: int = 128):
+    """Full-square C_same→ and shared counts streamed from a chunked store:
+    (C→, n), each (S, S) float32 on ``acc``'s device.
+
+    Each chunk of ``store`` (a ``core.store.CorpusStore``) is one entry
+    block with one representative p̂ (``p_hat[k]``). Where ``acc`` is a CUDA
+    tensor, each chunk's int8 block is staged to the card as it is (a chunk
+    whose width is not a multiple of 4 gets inert zero columns), and one
+    kernel launch adds its sums to the two (S, S) device accumulators — in
+    float32, in chunk order, so counts equal one dense ``copyscore`` over
+    the same chunks bit for bit. The incidence is resident one chunk at a
+    time. Where ``acc`` is a CPU tensor or a numpy array, each chunk goes
+    through ``ref.copyscore_torch`` and is added the same way. Chunks with
+    no live entry (all-padding columns, which a committed store's region
+    alignment or a retraction's GC can leave) add zero to every channel
+    and are skipped without a launch. ``block_i``/``block_j`` as in
+    ``copyscore``.
+    """
+    acc = torch.as_tensor(acc)
+    dev = acc.device
+    acc = _as_blocks(acc, store.n_rows, dev, "acc")
+    p_hat = torch.as_tensor(np.asarray(p_hat, np.float32))
+    c = torch.zeros((store.n_rows, store.n_rows), dtype=torch.float32,
+                    device=dev)
+    n = torch.zeros_like(c)
+    for k, ch in enumerate(store.iter_chunks()):
+        if ch.width == 0 or not (ch.item >= 0).any():
+            continue
+        V = ch.V
+        if dev.type == "cuda" and ch.width % 4:
+            V = np.pad(V, ((0, 0), (0, (-ch.width) % 4)))
+        v = torch.from_numpy(np.ascontiguousarray(V)).to(dev)
+        small = _single_operands(v, v, acc, acc, p_hat[k: k + 1], None,
+                                 v.shape[1])
+        if dev.type == "cpu":
+            ck, nk = kref.copyscore_torch(v, small[2], acc, s=s,
+                                          n_false=n_false, block_e=v.shape[1])
+            c, n = c + ck, n + nk
+            continue
+        _launch_single(v, v, small, (c, n), block_e=v.shape[1],
+                       accumulate=True, s=s, n_false=n_false)
+        copyscore_store.launches += 1
+    return c, n
+
+
+copyscore_store.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -434,6 +689,7 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, window=None,
     raise ValueError(f"impl must be 'kernel' or 'reference', got {impl!r}")
 
 
-__all__ = ["FlashAttention", "copyscore_tile_fused", "flash_attention",
-           "flash_attention_bwd", "flash_attention_bwd_dkv",
-           "flash_attention_bwd_dq", "flash_attention_fwd", "tile_scores"]
+__all__ = ["FlashAttention", "copyscore", "copyscore_store", "copyscore_tile",
+           "copyscore_tile_fused", "flash_attention", "flash_attention_bwd",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+           "flash_attention_fwd", "pad_for_copyscore", "tile_scores"]

@@ -15,6 +15,17 @@ import torch
 _TILE_BATCH_ELEMENTS = 1 << 24
 
 
+def _pr_independent(p, a1, a2, n_false):
+    """Eq. (3), a1·a2 first: bitwise invariant under a1 ↔ a2, so on a
+    diagonal tile C← == C→ᵀ exactly (the kernels' association)."""
+    return p * (a1 * a2) + (1.0 - p) * ((1.0 - a1) * (1.0 - a2)) / n_false
+
+
+def _pair_score(p, a_src, pr_ind, s):
+    """Eq. (6) with ``a_src`` the copied source's accuracy."""
+    return torch.log(1.0 - s + s * (p * a_src + (1.0 - p) * (1.0 - a_src)) / pr_ind)
+
+
 def _fused_channels(vi, vj, a1, a2, p_blk, d_blk, m_blk, s, n_false):
     """The five channels of a batch of pair tiles.
 
@@ -33,11 +44,9 @@ def _fused_channels(vi, vj, a1, a2, p_blk, d_blk, m_blk, s, n_false):
         count = torch.bmm(vi[:, :, k, :].to(torch.float32),
                           vj[:, :, k, :].to(torch.float32).transpose(1, 2))
         p_k, d_k, m_k = p_blk[k], d_blk[k], m_blk[k]
-        # symmetric association (a1·a2 first): bitwise invariant under
-        # a1↔a2, so on a diagonal tile C← == C→ᵀ exactly
-        pr_ind = p_k * (a1 * a2) + (1.0 - p_k) * ((1.0 - a1) * (1.0 - a2)) / n_false
-        f_fwd = torch.log(1.0 - s + s * (p_k * a2 + (1.0 - p_k) * (1.0 - a2)) / pr_ind)
-        f_bwd = torch.log(1.0 - s + s * (p_k * a1 + (1.0 - p_k) * (1.0 - a1)) / pr_ind)
+        pr_ind = _pr_independent(p_k, a1, a2, n_false)
+        f_fwd = _pair_score(p_k, a2, pr_ind, s)
+        f_bwd = _pair_score(p_k, a1, pr_ind, s)
         cf = cf + f_fwd * count
         cb = cb + f_bwd * count
         n = n + count
@@ -101,6 +110,45 @@ def tile_scores_torch(v, acc, p_hat, delta, nout, coords, stacks, *,
                                p_hat, delta, nout, s, n_false)
         for st, o in zip(stacks, outs):
             st[t] = st[t] + o
+
+
+def copyscore_torch(v, p_blk, acc, *, s: float, n_false: float, block_e: int,
+                    v_cols=None, acc_cols=None, delta_blk=None):
+    """Single-direction copyscore over one pair block — the plain
+    counterpart of the JAX package's ``copyscore_ref`` /
+    ``copyscore_pallas``, with the kernels' a1·a2-first association.
+
+    ``v`` (S_i, E) and ``v_cols`` (S_j, E, default ``v``: the full square)
+    incidence of any dtype with E a multiple of ``block_e``; rows copy from
+    columns. Each entry block carries one p̂ (``p_blk``) and, with
+    ``delta_blk``, one error bound δ. Returns (C_same→, n), or (C_same→, n,
+    err) with ``delta_blk``, each (S_i, S_j) float32, summed over the blocks
+    from zero in block order; counts are float32 products of the 0/1
+    incidence, exact below 2²⁴.
+    """
+    vj = v if v_cols is None else v_cols
+    accj = acc if acc_cols is None else acc_cols
+    S_i, E = v.shape
+    S_j = vj.shape[0]
+    dev = v.device
+    p_blk = torch.as_tensor(p_blk, dtype=torch.float32, device=dev)
+    a1 = torch.as_tensor(acc, dtype=torch.float32, device=dev)[:, None]
+    a2 = torch.as_tensor(accj, dtype=torch.float32, device=dev)[None, :]
+    c = torch.zeros((S_i, S_j), dtype=torch.float32, device=dev)
+    n = torch.zeros_like(c)
+    err = None
+    if delta_blk is not None:
+        delta_blk = torch.as_tensor(delta_blk, dtype=torch.float32, device=dev)
+        err = torch.zeros_like(c)
+    for k in range(E // block_e):
+        blk = slice(k * block_e, (k + 1) * block_e)
+        count = v[:, blk].to(torch.float32) @ vj[:, blk].to(torch.float32).T
+        f = _pair_score(p_blk[k], a2, _pr_independent(p_blk[k], a1, a2, n_false), s)
+        c = c + f * count
+        n = n + count
+        if err is not None:
+            err = err + delta_blk[k] * count
+    return (c, n) if err is None else (c, n, err)
 
 
 # ---------------------------------------------------------------------------
