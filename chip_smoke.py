@@ -32,9 +32,10 @@ full pass's store is still in memory; then phases 7–12. Phases:
      the bound from the kernel's note;
   7. the flash-attention kernel against its plain PyTorch version on the
      card: MHA, GQA (group 4), MQA, causal and not, windows 32 and 100,
-     head_dim 64 and 128, float32 and bfloat16, ragged Sq = Sk = 1000 and
-     Sq != Sk; o and lse within the stated tolerances, and o == 1 for an
-     all-ones v;
+     head_dim 64 and 128, float32 (CUDA cores) and bfloat16 (tensor cores,
+     P split into bf16 hi + lo), ragged Sq = Sk = 1000, Sq != Sk, and
+     causal Sq = 300, Sk = 428 (no multiple of the 128-row tiles); o and
+     lse within the stated tolerances, and o == 1 for an all-ones v;
   8. the LM slice at full Llama-3.2-1B width (16 layers, d_model 2048,
      random weights from seed 0 on the card): ``Model.prefill`` of 8
      prompts × 2048 tokens in bfloat16 through the kernel (one launch per
@@ -49,7 +50,9 @@ full pass's store is still in memory; then phases 7–12. Phases:
   9. timing of the flash-attention kernel at the prefill's shapes (B=8,
      Hq=32, Hkv=8, S=2048, D=64, bf16, causal) beside the plain version,
      ``F.scaled_dot_product_attention`` (timed only; the port never calls
-     it) and the bound computed from the shapes;
+     it) and the bound computed from the shapes; beside the bound, the
+     tensor operations the bf16 kernel does with the split, and its ptxas
+     registers, spills and shared memory and resident blocks an SM;
  10. the two flash-attention backward kernels (dq; dk/dv) against their
      plain versions on every case of phase 7 in float32 and bfloat16, rows
      with nothing visible (zero gradients, no NaN), and the
@@ -69,6 +72,9 @@ full pass's store is still in memory; then phases 7–12. Phases:
      and the backward of ``F.scaled_dot_product_attention`` (timed only),
      with their bounds; the forward at the same shapes; the kernels' share
      of a training step and the step's model-FLOP share of the bf16 peak;
+     the dk/dv kernel's tensor operations with the split beside its bound,
+     and its ptxas registers, spills and shared memory and resident blocks
+     an SM;
  13. the single-direction copyscore kernel (B3, and B2 with the error
      channel) against its plain version: full squares through
      ``ops.copyscore`` and ragged rectangles (100 × 37, 64 × 130) through
@@ -106,6 +112,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -172,6 +179,7 @@ FLASH_CASES = [
     ("head_dim 128 window 100", 1, 8, 2, 512, 512, 128, True, 100),
     ("ragged Sq=Sk=1000", 1, 8, 2, 1000, 1000, 64, True, None),
     ("ragged Sq=100 Sk=37 non-causal", 1, 4, 2, 100, 37, 128, False, None),
+    ("causal Sq=300 Sk=428", 1, 8, 2, 300, 428, 64, True, None),
 ]
 # Llama-3.2-1B prefill (phase 8) and the kernel's timing shapes (phase 9)
 PREFILL_BATCH, PREFILL_LEN = 8, 2048
@@ -514,6 +522,14 @@ def phase_flash_timing(torch, dev, ops, ref, card, llama) -> dict:
         f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
         f"({ops_n} operations {t_ops:.4f} ms at bf16 peak, {nbytes} B "
         f"{t_bytes:.4f} ms)")
+    pairs = B * Hq * S * (S + 1) // 2
+    split_n = pairs * 2 * (3 * D + 16)      # q·kᵀ, hi·v, lo·v, ones for l
+    log(f"[9] bf16 kernel's tensor operations with the split (q·kᵀ, then "
+        f"P·v as hi·v + lo·v, and l as P·1 in the same two passes): "
+        f"{split_n} ({split_n / ops_n:.3f}x the bound's count), "
+        f"{split_n / BF16_OPS * 1e3:.4f} ms at bf16 peak")
+    _tc_report("9", "flash_attention_fwd", "flash_fwd_tc_kernel",
+               "flash_attention_fwd_info", D)
     n, pre_ms = llama["launches"], llama["prefill_s"] * 1e3
     log(f"[9] in the prefill: {n} launches x {ms:.4f} ms = {n * ms:.3f} ms of "
         f"{pre_ms:.3f} ms ({n * ms / pre_ms:.1%})")
@@ -522,6 +538,33 @@ def phase_flash_timing(torch, dev, ops, ref, card, llama) -> dict:
             raise AssertionError("a timing is not a positive number")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": d_o}
+
+
+def _tc_report(tag: str, lib: str, entry: str, info_fn: str, D: int) -> None:
+    """Print a bf16 tensor-core kernel's ptxas report (registers, spills,
+    static shared memory) from this run's build log, and its dynamic shared
+    memory and resident blocks an SM at head_dim D from the card."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    reports = _build.ptxas_entries(_build.BUILD_LOG.get(lib, {}).get("ptxas", ""))
+    found = [lines for name, lines in reports.items()
+             if entry in name and re.search(rf"ILi{D}E", name)]
+    for lines in found:
+        log(f"[{tag}] ptxas {entry}<{D}>: " + "; ".join(lines))
+    if not found:
+        log(f"[{tag}] ptxas: {entry} is not in this run's build log (a cached "
+            f"library)")
+    fn = getattr(_build.load(lib), info_fn)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
+    code = fn(D, ctypes.byref(smem), ctypes.byref(blocks))
+    if code != 0:
+        raise AssertionError(f"{info_fn} failed with CUDA error {code}")
+    log(f"[{tag}] {entry}<{D}>: {smem.value} B of dynamic shared memory, "
+        f"{blocks.value} resident blocks an SM")
 
 
 def _bwd_inputs(torch, ops, dev, seed, B, Hq, Hkv, Sq, Sk, D, dtype, causal,
@@ -826,6 +869,12 @@ def phase_flash_bwd_timing(torch, dev, ops, ref, card, training) -> dict:
         bounds[name] = (bound, "operations" if bound == t_ops else "bytes")
         log(f"[12] {name} bound {bound:.4f} ms by {bounds[name][1]} ({flops} "
             f"operations {t_ops:.4f} ms at bf16 peak, {nbytes} B {t_bytes:.4f} ms)")
+    split_n = 6 * 2 * D * pairs
+    log(f"[12] dk/dv bf16 kernel's tensor operations with the split (k·qᵀ, "
+        f"v·doᵀ, then Pᵀ·do and dSᵀ·q each as hi + lo): {split_n} (1.5x the "
+        f"bound's count), {split_n / BF16_OPS * 1e3:.4f} ms at bf16 peak")
+    _tc_report("12", "flash_attention_bwd", "flash_bwd_dkv_tc_kernel",
+               "flash_attention_bwd_dkv_info", D)
     log(f"[12] flash backward B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} bf16 causal "
         f"({card}): kernels vs plain max |Δdq| {e_dq:.3e}, max |Δdk,dv| {e_dkv:.3e}")
     log(f"[12] dq kernel {dq_ms:.4f} ms (plain {dq_plain:.4f} ms); dk/dv kernel "

@@ -3,8 +3,10 @@
 Each source ``csrc/<name>.cu`` exposes a plain C interface and is compiled
 by ``nvcc`` into its own shared library under ``build/kernels/`` at the root
 of the checkout, at first use, then loaded with ``ctypes``. The library's
-file name carries a hash of the source and the flags, so an edited source
-is rebuilt and an unchanged one is loaded as it is. Nothing here runs at
+file name carries a hash of the source, of every ``csrc`` header it
+includes (``#include "x.cuh"``, followed through headers) and of the flags,
+so an edited source or header is rebuilt and an unchanged one is loaded as
+it is. Nothing here runs at
 import: the CPU tests import every module, and ``nvcc`` is only called when
 a kernel is first launched (or ``build_all`` is called).
 """
@@ -46,10 +48,27 @@ def _nvcc() -> str:
                        "the CUDA toolkit is installed")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes, directly or
+    through other headers, in the order first reached."""
+    seen = [CSRC / f"{name}.cu"]
+    for path in seen:
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = CSRC / inc.decode()
+            if dep.exists() and dep not in seen:
+                seen.append(dep)
+    return seen
+
+
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256()
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):
@@ -57,8 +76,10 @@ def _start(name: str):
     (process, temporary output, t0) or None."""
     out = _target(name)
     if out.exists():
-        BUILD_LOG[name] = {"path": str(out), "seconds": 0.0, "cached": True,
-                           "ptxas": ""}
+        # a library this process built keeps its entry (and ptxas report)
+        if BUILD_LOG.get(name, {}).get("path") != str(out):
+            BUILD_LOG[name] = {"path": str(out), "seconds": 0.0,
+                               "cached": True, "ptxas": ""}
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -80,6 +101,22 @@ def _finish(name: str, pending) -> None:
                       if re.search(r"ptxas info|spill|registers", line))
     BUILD_LOG[name] = {"path": str(out), "seconds": time.perf_counter() - t0,
                        "cached": False, "ptxas": ptxas}
+
+
+def ptxas_entries(ptxas: str) -> dict:
+    """A ``BUILD_LOG`` entry's ptxas report split by kernel: each mangled
+    entry name → its report lines (stack, spills, registers, shared
+    memory), in the order ptxas printed them."""
+    out: dict = {}
+    lines = None
+    for line in ptxas.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            lines = out.setdefault(entry.group(1), [])
+        elif lines is not None and "Function properties" not in line:
+            lines.append(line.split(":", 1)[-1].strip()
+                         if "ptxas info" in line else line.strip())
+    return out
 
 
 def build_all() -> dict:
@@ -105,4 +142,5 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-__all__ = ["BUILD_DIR", "BUILD_LOG", "NVCC_FLAGS", "build_all", "load"]
+__all__ = ["BUILD_DIR", "BUILD_LOG", "NVCC_FLAGS", "build_all", "load",
+           "ptxas_entries"]

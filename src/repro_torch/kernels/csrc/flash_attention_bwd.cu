@@ -40,19 +40,49 @@
 // products (s, dp, dq: 1.03e11 operations, 0.104 ms at the bf16
 // tensor-core peak of 989 TFLOP/s), dk/dv four (s, dp, dv, dk: 1.37e11,
 // 0.139 ms), against ~0.1 GB of q/k/v/do/lse/delta read and gradients
-// written (~0.03 ms at 3.35 TB/s): both are bound by operations. This
-// first version, like the forward, does every product as a float32 FMA on
-// the CUDA cores (67 TFLOP/s peak) from operands in shared memory, so in
-// practice it is bound by the FMA rate and shared-memory bandwidth, well
-// above the tensor-core bound. mma.sync/wgmma, TMA staging and keeping p
-// and ds in registers are left for later work.
+// written (~0.03 ms at 3.35 TB/s): both are bound by operations.
 //
-// Design. 256 threads a block, 64×64 tiles, operands converted to float32
-// in shared memory with row pitch D+4 (16-byte aligned rows, conflict-free
-// float4 reads across a quarter warp), as in flash_attention_fwd.cu.
-// Thread (ty, tx) holds rows ty+16i and columns tx+16j (i, j < 4) of a
-// 64×64 score tile and output columns tx+16n (n < D/16); p or ds goes
-// through shared memory for the second product.
+// dk/dv in bfloat16: tensor cores (flash_bwd_dkv_tc_kernel). Numerics, the
+// contract that keeps what the TPU kernel computes: Sᵀ = k·qᵀ and dPᵀ =
+// v·doᵀ are one bf16 mma.sync pass each (exact products of bf16 values
+// summed in float32). P and dS stay float32 and are never rounded to one
+// bf16 value: each enters the second products as the unevaluated sum
+// hi + lo of two bf16 values, hi = bf16(x), lo = bf16(x - hi)
+// (flash_mma.cuh), |x - (hi + lo)| ≤ 2⁻¹⁸·|x|, far below the one bf16
+// rounding of dk and dv that the plain version applies too; dV += Pᵀ·dO =
+// hiᵀ·dO + loᵀ·dO and dK += dSᵀ·Q = hiᵀ·Q + loᵀ·Q, every pass exact into
+// float32 accumulators. 6 bf16 passes for 4 products: 1.5× the tensor
+// work that the bound counts.
+// Design: grid (B·Hkv, ceil(Sk/64)), the earliest (heaviest under causal
+// masking) key tiles of every head first. A block of 4 warps owns 64 keys
+// of one kv head (warp w owns keys 16w..16w+15) and loops over the group's
+// q heads and, for each, the query tiles that can see its keys (64 rows at
+// D = 64, 32 at D = 128), so dk/dv come out group-summed, deterministic,
+// with no atomics. Q, dO, lse and delta tiles stream through a 2-stage
+// ring in shared memory, loaded with cp.async, so the next tile's loads
+// overlap this tile's products. Per tile a warp computes the transposed
+// scores with the key dimension as M (k and v fragments by ldmatrix, q and
+// do as the B operand by ldmatrix), then Pᵀ = exp(Sᵀ - lse) and dSᵀ =
+// Pᵀ∘(dPᵀ - delta)·scale in the accumulator fragments (lse and delta per
+// column from shared memory; masked only where the tile straddles the
+// diagonal, the window, Sq or Sk), splits them in registers and feeds them
+// straight back as the A operand of dV += Pᵀ·dO and dK += dSᵀ·Q, with q and
+// do read through the transposing ldmatrix. dk and dv stay in float32
+// registers for the whole loop and are written once through shared memory
+// in 16-byte stores. cp.async and mma.sync, not TMA and wgmma: wgmma is
+// the next step.
+//
+// dq, and dk/dv in float32: CUDA cores. Every product is a float32 FMA
+// (67 TFLOP/s peak) from operands in shared memory, so in practice they
+// are bound by the FMA rate and shared-memory bandwidth, well above the
+// tensor-core bound. No measured path runs float32 attention; the float32
+// checks run through these. Design: 256 threads a block, 64×64 tiles,
+// operands converted to float32 in shared memory with row pitch D+4
+// (16-byte aligned rows, conflict-free float4 reads across a quarter
+// warp), as in flash_attention_fwd.cu. Thread (ty, tx) holds rows ty+16i
+// and columns tx+16j (i, j < 4) of a 64×64 score tile and output columns
+// tx+16n (n < D/16); p or ds goes through shared memory for the second
+// product.
 // - dq: grid (ceil(Sq/64), B·Hq); a block owns 64 query rows of one q
 //   head and loops over the key tiles of its kv head that the causal
 //   limit and the window admit (tiles wholly outside are never loaded),
@@ -67,6 +97,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -202,11 +234,7 @@ __device__ __forceinline__ void tile_mma(float acc[4][D / 16], const float* S,
   }
 }
 
-__device__ __forceinline__ bool visible(int r, int c, int Sq, int Sk,
-                                        int causal, int window) {
-  return r < Sq && c < Sk && (!causal || r >= c) &&
-         (window <= 0 || r - c < window);
-}
+using flash_mma::visible;
 
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
@@ -440,6 +468,261 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- dk/dv in bfloat16 on the tensor cores --------------------------------
+
+namespace fm = flash_mma;
+using fm::bf16;
+
+namespace tc {
+
+constexpr int BKV = 64;        // keys per block: 4 warps × 16
+constexpr int THREADS = 128;
+constexpr int STAGES = 2;
+
+// Shared memory: k and v tiles (bf16, pitch D + 8), then the ring of q/do
+// tiles (stage s: q at ring + 2·s·BQ·P, do BQ·P after it), then lse and
+// delta of each stage (float32, lse at stat + 2·s·BQ, delta BQ after it).
+template <int D>
+struct Smem {
+  static constexpr int P = D + 8;
+  static constexpr int BQ = D == 64 ? 64 : 32;  // query rows per tile
+  static constexpr int k = 0;
+  static constexpr int v = BKV * P;
+  static constexpr int ring = 2 * BKV * P;
+  static constexpr size_t stat =
+      (size_t)(ring + STAGES * 2 * BQ * P) * sizeof(bf16);
+  static constexpr size_t bytes = stat + STAGES * 2 * BQ * sizeof(float);
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta, bf16* __restrict__ dk,
+                        bf16* __restrict__ dv, int Hq, int Hkv, int Sq, int Sk,
+                        int causal, int window, float scale) {
+  using L = Smem<D>;
+  constexpr int P = L::P;
+  constexpr int BQ = L::BQ;
+  constexpr int KD = D / 16;                    // k-steps of the score products
+  constexpr int NS = BQ / 8;                    // n-tiles of Sᵀ, dPᵀ
+  constexpr int NO = D / 8;                     // n-tiles of dk, dv
+  extern __shared__ float4 smem_f4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_f4);
+  bf16* Ks = smem + L::k;
+  bf16* Vs = smem + L::v;
+  float* stats = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(smem_f4) + L::stat);
+
+  const int lane = threadIdx.x & 31;
+  const int w0 = (threadIdx.x >> 5) * 16;       // the warp's first key
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bkv = blockIdx.x;                   // b·Hkv + kv head
+  const int b = bkv / Hkv;
+  const int kvh = bkv % Hkv;
+  const int group = Hq / Hkv;
+  const int k0 = blockIdx.y * BKV;              // heaviest (earliest) first
+  const size_t kv_base = (size_t)bkv * Sk * D;
+  const int c0 = k0 + w0 + g;                   // keys c0 and c0 + 8
+
+  // the query tiles that can see any key of this tile, for each q head
+  int q_lo = 0, q_hi = Sq;
+  if (causal) q_lo = k0;
+  if (window > 0) q_hi = min(Sq, k0 + BKV - 1 + window);
+  const int qt0 = q_lo / BQ;
+  const int nq = q_lo < q_hi ? (q_hi + BQ - 1) / BQ - qt0 : 0;
+  const int n_iter = group * nq;
+
+  auto load_q = [&](int it) {
+    const int s = it % STAGES;
+    const size_t bh = (size_t)b * Hq + kvh * group + it / nq;
+    const int q0 = (qt0 + it % nq) * BQ;
+    bf16* Qs = smem + L::ring + s * 2 * BQ * P;
+    fm::cp_tile<D, BQ, THREADS>(Qs, q + bh * Sq * D, q0, Sq);
+    fm::cp_tile<D, BQ, THREADS>(Qs + BQ * P, dout + bh * Sq * D, q0, Sq);
+    float* st = stats + s * 2 * BQ;
+    for (int i = threadIdx.x; i < 2 * BQ; i += THREADS) {
+      const int r = q0 + i % BQ;
+      const float* src = (i < BQ ? lse : delta) + bh * Sq;
+      fm::cp_async4(st + i, src + (r < Sq ? r : 0), r < Sq);
+    }
+  };
+  // group 0 holds k, v and the first q tile; group i the q tile i
+  if (n_iter > 0) {
+    fm::cp_tile<D, BKV, THREADS>(Ks, k + kv_base, k0, Sk);
+    fm::cp_tile<D, BKV, THREADS>(Vs, v + kv_base, k0, Sk);
+    load_q(0);
+  }
+  fm::cp_async_commit();
+
+  const float sl2 = scale * fm::LOG2E;          // scores in log2 units
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dka[n][e] = 0.f;
+      dva[n][e] = 0.f;
+    }
+
+  for (int it = 0; it < n_iter; ++it) {
+    fm::cp_async_wait<0>();                     // tile it has landed
+    __syncthreads();                            // ... for every thread; tile it-1 consumed
+    if (it + 1 < n_iter) load_q(it + 1);
+    fm::cp_async_commit();
+    const int s = it % STAGES;
+    const bf16* Qs = smem + L::ring + s * 2 * BQ * P;
+    const bf16* DOs = Qs + BQ * P;
+    const float* LSEs = stats + s * 2 * BQ;
+    const float* DELs = LSEs + BQ;
+    const int q0 = (qt0 + it % nq) * BQ;
+    // a tile that sees none of this warp's keys adds nothing
+    if ((causal && k0 + w0 > q0 + BQ - 1) ||
+        (window > 0 && q0 - (k0 + w0 + 15) >= window))
+      continue;
+
+    // Sᵀ = k·qᵀ and dPᵀ = v·doᵀ: rows keys, n-tile j queries q0 + 8j .. + 7
+    float st[NS][4], dpt[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        st[j][e] = 0.f;
+        dpt[j][e] = 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t kf[4], vf[4];
+      fm::ldsm_x4(kf, Ks + (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+      fm::ldsm_x4(vf, Vs + (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        const int off = (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t bq[4], bo[4];
+        fm::ldsm_x4(bq, Qs + off);
+        fm::ldsm_x4(bo, DOs + off);
+        fm::mma(st[2 * jp], kf, bq[0], bq[1]);
+        fm::mma(st[2 * jp + 1], kf, bq[2], bq[3]);
+        fm::mma(dpt[2 * jp], vf, bo[0], bo[1]);
+        fm::mma(dpt[2 * jp + 1], vf, bo[2], bo[3]);
+      }
+    }
+
+    // Pᵀ = exp(Sᵀ - lse) on visible pairs (0 by selection elsewhere: an
+    // empty row's lse is NEG_INF), dSᵀ = Pᵀ∘(dPᵀ - delta)·scale
+    const bool full = q0 + BQ <= Sq && k0 + w0 + 16 <= Sk &&
+                      (!causal || k0 + w0 + 15 <= q0) &&
+                      (window <= 0 || q0 + BQ - 1 - (k0 + w0) < window);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t + (e & 1);
+        const int c = c0 + (e >> 1) * 8;
+        float p = exp2f(fmaf(st[j][e], sl2, -LSEs[col] * fm::LOG2E));
+        if (!full && !fm::visible(q0 + col, c, Sq, Sk, causal, window)) p = 0.f;
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - DELs[col]) * scale;
+      }
+
+    // dV += Pᵀ·dO and dK += dSᵀ·Q, each as hi + lo: k-step kq is queries
+    // q0 + 16kq .. + 15
+#pragma unroll
+    for (int kq = 0; kq < BQ / 16; ++kq) {
+      uint32_t phi[4], plo[4], dhi[4], dlo[4];
+      fm::split_a(st[2 * kq], st[2 * kq + 1], phi, plo);
+      fm::split_a(dpt[2 * kq], dpt[2 * kq + 1], dhi, dlo);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        const int off = (kq * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * P +
+                        dp * 16 + ((lane >> 4) << 3);
+        uint32_t bo[4], bq[4];
+        fm::ldsm_x4_t(bo, DOs + off);
+        fm::ldsm_x4_t(bq, Qs + off);
+        fm::mma(dva[2 * dp], phi, bo[0], bo[1]);
+        fm::mma(dva[2 * dp], plo, bo[0], bo[1]);
+        fm::mma(dva[2 * dp + 1], phi, bo[2], bo[3]);
+        fm::mma(dva[2 * dp + 1], plo, bo[2], bo[3]);
+        fm::mma(dka[2 * dp], dhi, bq[0], bq[1]);
+        fm::mma(dka[2 * dp], dlo, bq[0], bq[1]);
+        fm::mma(dka[2 * dp + 1], dhi, bq[2], bq[3]);
+        fm::mma(dka[2 * dp + 1], dlo, bq[2], bq[3]);
+      }
+    }
+  }
+  fm::cp_async_wait<0>();
+
+  // dk and dv through this warp's rows of the k and v tiles (read by no
+  // other warp), then out in 16-byte stores
+  bf16* dKs = Ks + w0 * P;
+  bf16* dVs = Vs + w0 * P;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int c = 8 * n + 2 * t;
+    *reinterpret_cast<__nv_bfloat162*>(dKs + g * P + c) =
+        __floats2bfloat162_rn(dka[n][0], dka[n][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dKs + (g + 8) * P + c) =
+        __floats2bfloat162_rn(dka[n][2], dka[n][3]);
+    *reinterpret_cast<__nv_bfloat162*>(dVs + g * P + c) =
+        __floats2bfloat162_rn(dva[n][0], dva[n][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dVs + (g + 8) * P + c) =
+        __floats2bfloat162_rn(dva[n][2], dva[n][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int idx = lane; idx < 16 * (D / 8); idx += 32) {
+    const int r = idx / (D / 8);
+    const int c = (idx % (D / 8)) * 8;
+    if (k0 + w0 + r >= Sk) continue;
+    const size_t at = kv_base + (size_t)(k0 + w0 + r) * D + c;
+    *reinterpret_cast<uint4*>(dk + at) =
+        *reinterpret_cast<const uint4*>(dKs + r * P + c);
+    *reinterpret_cast<uint4*>(dv + at) =
+        *reinterpret_cast<const uint4*>(dVs + r * P + c);
+  }
+}
+
+// The kernel's dynamic shared memory above the 48 KB default.
+template <int D>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)Smem<D>::bytes);
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int Hq, int Hkv, int Sq,
+                       int Sk, int causal, int window, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = Smem<D>::bytes;
+  cudaError_t err = allow_smem<D>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(B * Hkv), (unsigned)((Sk + BKV - 1) / BKV));
+  flash_bwd_dkv_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Hq, Hkv,
+      Sq, Sk, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t info(int* smem_bytes, int* blocks_per_sm) {
+  cudaError_t err = allow_smem<D>();
+  if (err != cudaSuccess) return err;
+  *smem_bytes = (int)Smem<D>::bytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_bwd_dkv_tc_kernel<D>, THREADS, Smem<D>::bytes);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -488,11 +771,19 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k,
   Launch fn = nullptr;
   if (dtype == 0 && D == 64) fn = launch_dkv<float, 64>;
   if (dtype == 0 && D == 128) fn = launch_dkv<float, 128>;
-  if (dtype == 1 && D == 64) fn = launch_dkv<__nv_bfloat16, 64>;
-  if (dtype == 1 && D == 128) fn = launch_dkv<__nv_bfloat16, 128>;
+  if (dtype == 1 && D == 64) fn = tc::launch_dkv<64>;
+  if (dtype == 1 && D == 128) fn = tc::launch_dkv<128>;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return (int)fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk,
                  causal, window, scale, (cudaStream_t)stream);
+}
+
+// The bfloat16 dk/dv kernel's dynamic shared memory and resident blocks an
+// SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for head_dim D.
+int flash_attention_bwd_dkv_info(int D, int* smem_bytes, int* blocks_per_sm) {
+  if (D == 64) return (int)tc::info<64>(smem_bytes, blocks_per_sm);
+  if (D == 128) return (int)tc::info<128>(smem_bytes, blocks_per_sm);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_attention_bwd_error_string(int code) {

@@ -28,27 +28,61 @@
 // S=2048, D=64, bf16, causal) the work is 4·B·Hq·D·S(S+1)/2 ≈ 1.37e11
 // operations against ≈ 170 MB of q/k/v/o/lse: at the bf16 tensor-core peak
 // (989 TFLOP/s) 0.139 ms, at 3.35 TB/s 0.05 ms, so the function is bound by
-// operations. This first version does every product as a float32 FMA on
-// the CUDA cores (67 TFLOP/s peak, so at least ~2 ms there) and reads its
-// operands from shared memory, so in practice it is bound by the FMA rate
-// and shared-memory load bandwidth. mma.sync/wgmma for q·kᵀ, TMA staging and a
-// bf16 P are left for later work.
+// operations, and by the tensor cores' rate once they do the products.
 //
-// Design. Grid (ceil(Sq/64), B·Hq); one block of 256 threads owns 64 query
-// rows of one (batch, head) and loops over the 64-key tiles that the causal
-// limit and the window admit (tiles wholly outside are never loaded). Under
-// causal masking the heaviest query tiles are launched first. q, k and v
-// tiles are converted to float32 into shared memory (row pitch D+4 floats:
-// 16-byte aligned rows, conflict-free float4 reads across a quarter warp).
-// Thread (ty, tx) holds rows ty+16i and key columns tx+16j (i, j < 4) of
-// the score tile and output columns tx+16n (n < D/16); the 16 threads that
-// share a row sit in one half warp, so the row max and sum are shuffles.
-// The running (m, l, acc) stay in registers for the whole key loop; P goes
-// through shared memory for the P·V product.
+// Two instantiations, chosen by dtype.
+//
+// bfloat16: tensor cores (flash_fwd_tc_kernel). Numerics, the contract
+// that keeps what the TPU kernel computes: q·kᵀ is one bf16 mma.sync pass
+// (exact products of bf16 values summed in float32). P stays float32 and
+// enters P·V as the unevaluated sum hi + lo of two bf16 values, hi =
+// bf16(p), lo = bf16(p - hi) (flash_mma.cuh): |p - (hi + lo)| ≤ 2⁻¹⁸·p,
+// far below the one bf16 rounding of o that the plain version applies too,
+// and P·V = hi·V + lo·V, two exact passes into float32 accumulators. P is
+// never rounded to one bf16 value (what SDPA does and the TPU kernel does
+// not). The row sum l is taken over the same hi + lo, by the tensor cores:
+// one more n-tile of the P·V product against a column of ones, so for
+// v = 1 every column of acc equals l bit for bit and o = acc / l = 1.
+// That is 3 bf16 passes for 2 products (plus the ones column, 1/8 of a
+// P·V pass at D = 64): 1.5× the tensor work that the bound counts.
+// Design: grid (B·Hq, ceil(Sq/128)), heaviest query tiles first under
+// causal masking (blockIdx.y counts from the last tile, so every head's
+// diagonal-heavy tiles are scheduled before any light one). A block of 8
+// warps owns 128 query rows of one (batch, q head); warp w owns rows
+// 16w..16w+15 and keeps their q fragments in registers for the whole key
+// loop. 64-key K/V tiles stream through a ring of 3 stages (D = 64; 2 at
+// D = 128) in shared memory, loaded with cp.async, so the next tiles' loads
+// overlap this tile's products. Per tile a warp computes S = q·kᵀ (16 × 64,
+// mma.sync m16n8k16, K read with ldmatrix), masks it only where the tile
+// straddles the causal diagonal, the window or Sk, updates the online
+// softmax (row max by two shuffles within the 4 lanes of a row), splits P
+// in registers and feeds the S accumulators straight back as the A
+// operand of P·V (V read with ldmatrix.trans), with no shared-memory round
+// trip for P. o is written once through shared memory in 16-byte stores.
+// The ring uses cp.async and wait_group, not TMA and mbarriers, and the
+// products are mma.sync, not wgmma: wgmma is the next step.
+//
+// float32: CUDA cores (flash_fwd_kernel). Every product is a float32 FMA
+// (67 TFLOP/s peak, so at least ~2 ms at the prefill's shapes), operands in
+// shared memory, so it is bound by the FMA rate and shared-memory load
+// bandwidth. No measured path runs float32 attention; the float32 checks
+// run through it. Design: grid (ceil(Sq/64), B·Hq); one block of 256
+// threads owns 64 query rows of one (batch, head) and loops over the 64-key
+// tiles that the causal limit and the window admit (tiles wholly outside
+// are never loaded). Under causal masking the heaviest query tiles are
+// launched first. q, k and v tiles are converted to float32 into shared
+// memory (row pitch D+4 floats: 16-byte aligned rows, conflict-free float4
+// reads across a quarter warp). Thread (ty, tx) holds rows ty+16i and key
+// columns tx+16j (i, j < 4) of the score tile and output columns tx+16n
+// (n < D/16); the 16 threads that share a row sit in one half warp, so the
+// row max and sum are shuffles. The running (m, l, acc) stay in registers
+// for the whole key loop; P goes through shared memory for the P·V product.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "flash_mma.cuh"
 
 namespace {
 
@@ -56,7 +90,7 @@ constexpr int BQ = 64;         // query rows per block
 constexpr int BK = 64;         // keys per tile
 constexpr int THREADS = 256;
 constexpr int PK = BK + 4;     // pitch of the P tile's rows (floats)
-constexpr float NEG_INF = -1e30f;
+using flash_mma::NEG_INF;
 
 template <int D>
 struct Smem {
@@ -72,21 +106,7 @@ __device__ __forceinline__ float4 load4(const float* src) {
   return *reinterpret_cast<const float4*>(src);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  __nv_bfloat162 lo, hi;
-  lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store1(float* dst, float x) { *dst = x; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);                   // round to nearest even
-}
 
 __device__ __forceinline__ float fma4(float4 a, float4 b, float c) {
   c = fmaf(a.x, b.x, c);
@@ -267,6 +287,260 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
+// ---- bfloat16 on the tensor cores -----------------------------------------
+
+namespace fm = flash_mma;
+using fm::bf16;
+
+namespace tc {
+
+constexpr int BQ = 128;        // query rows per block: 8 warps × 16
+constexpr int BK = 64;         // keys per tile
+constexpr int THREADS = 256;
+
+// Shared memory, in bf16 elements: the q tile, then the K/V ring (stage s
+// holds k at kv + 2·s·BK·P and v BK·P after it); rows of pitch D + 8.
+template <int D>
+struct Smem {
+  static constexpr int P = D + 8;
+  static constexpr int STAGES = D == 64 ? 3 : 2;
+  static constexpr int MIN_BLOCKS = D == 64 ? 2 : 1;   // blocks an SM
+  static constexpr int q = 0;
+  static constexpr int kv = BQ * P;
+  static constexpr size_t bytes =
+      (size_t)(kv + STAGES * 2 * BK * P) * sizeof(bf16);
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, Smem<D>::MIN_BLOCKS)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ o,
+                    float* __restrict__ lse, int Hq, int Hkv, int Sq, int Sk,
+                    int causal, int window, float scale) {
+  using L = Smem<D>;
+  constexpr int P = L::P;
+  constexpr int ST = L::STAGES;
+  constexpr int KD = D / 16;                    // k-steps of q·kᵀ
+  constexpr int NS = BK / 8;                    // n-tiles of S
+  constexpr int NO = D / 8;                     // n-tiles of o
+  extern __shared__ float4 smem_f4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_f4);
+  bf16* Qs = smem + L::q;
+
+  const int lane = threadIdx.x & 31;
+  const int w0 = (threadIdx.x >> 5) * 16;       // the warp's first row
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / Hq;
+  const int kvh = (bh % Hq) / (Hq / Hkv);
+  const int qt = causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y;
+  const int q0 = qt * BQ;
+  const size_t kv_base = ((size_t)b * Hkv + kvh) * Sk * D;
+  const bf16* kb = k + kv_base;
+  const bf16* vb = v + kv_base;
+
+  // the key tiles any row of this query tile can see
+  int k_lo = 0, k_hi = Sk;
+  if (causal) k_hi = min(Sk, q0 + BQ);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt0 = k_lo / BK;
+  const int n_tiles = k_lo < k_hi ? (k_hi + BK - 1) / BK - kt0 : 0;
+
+  auto load_kv = [&](int i) {
+    bf16* Ks = smem + L::kv + (i % ST) * 2 * BK * P;
+    fm::cp_tile<D, BK, THREADS>(Ks, kb, (kt0 + i) * BK, Sk);
+    fm::cp_tile<D, BK, THREADS>(Ks + BK * P, vb, (kt0 + i) * BK, Sk);
+  };
+  // group s holds tile s (and group 0 the q tile)
+  if (n_tiles > 0) fm::cp_tile<D, BQ, THREADS>(Qs, q + (size_t)bh * Sq * D, q0, Sq);
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < n_tiles) load_kv(s);
+    fm::cp_async_commit();
+  }
+
+  const int r0 = q0 + w0 + g;                   // rows r0 and r0 + 8
+  const float sl2 = scale * fm::LOG2E;          // scores in log2 units
+  uint32_t qf[KD][4];
+  float acc[NO][4], lacc[4] = {0.f, 0.f, 0.f, 0.f};
+  float m0 = fm::NEG_INF, m1 = fm::NEG_INF;
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    fm::cp_async_wait<ST - 2>();                // tile i has landed
+    __syncthreads();                            // ... for every thread; tile i-1 consumed
+    if (i + ST - 1 < n_tiles) load_kv(i + ST - 1);
+    fm::cp_async_commit();
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk)
+        fm::ldsm_x4(qf[kk], Qs + (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+    }
+    const bf16* Ks = smem + L::kv + (i % ST) * 2 * BK * P;
+    const bf16* Vs = Ks + BK * P;
+    const int k0 = (kt0 + i) * BK;
+    // a tile none of this warp's rows can see leaves its state as it is
+    if ((causal && k0 > q0 + w0 + 15) ||
+        (window > 0 && q0 + w0 - (k0 + BK - 1) >= window))
+      continue;
+
+    // S = q·kᵀ: n-tile j holds keys k0 + 8j .. + 7
+    float s[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        uint32_t kf[4];
+        fm::ldsm_x4(kf, Ks + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                            kk * 16 + ((lane >> 3) & 1) * 8);
+        fm::mma(s[2 * jp], qf[kk], kf[0], kf[1]);
+        fm::mma(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+      }
+
+    // mask (only a tile that straddles the diagonal, the window or Sk),
+    // online softmax in log2 units
+    const bool full = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= q0 + w0) &&
+                      (window <= 0 || q0 + w0 + 15 - k0 < window);
+    float mx0 = fm::NEG_INF, mx1 = fm::NEG_INF;
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = k0 + 8 * j + 2 * t + e;
+        float x0 = s[j][e] * sl2, x1 = s[j][2 + e] * sl2;
+        if (!full) {
+          if (!fm::visible(r0, c, Sq, Sk, causal, window)) x0 = fm::NEG_INF;
+          if (!fm::visible(r0 + 8, c, Sq, Sk, causal, window)) x1 = fm::NEG_INF;
+        }
+        s[j][e] = x0;
+        s[j][2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = exp2f(m0 - mn0), a1 = exp2f(m1 - mn1);
+    // a row with nothing visible yet subtracts 0, so its masked
+    // NEG_INF entries give p = 0, never exp(0)
+    const float u0 = mn0 == fm::NEG_INF ? 0.f : mn0;
+    const float u1 = mn1 == fm::NEG_INF ? 0.f : mn1;
+    m0 = mn0;
+    m1 = mn1;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      s[j][0] = exp2f(s[j][0] - u0);
+      s[j][1] = exp2f(s[j][1] - u0);
+      s[j][2] = exp2f(s[j][2] - u1);
+      s[j][3] = exp2f(s[j][3] - u1);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      acc[n][0] *= a0;
+      acc[n][1] *= a0;
+      acc[n][2] *= a1;
+      acc[n][3] *= a1;
+    }
+    lacc[0] *= a0;
+    lacc[1] *= a0;
+    lacc[2] *= a1;
+    lacc[3] *= a1;
+
+    // acc += P·V and l += P·1, P = hi + lo
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      fm::split_a(s[2 * kk], s[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        uint32_t vf[4];
+        fm::ldsm_x4_t(vf, Vs + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * P +
+                              dp * 16 + ((lane >> 4) << 3));
+        fm::mma(acc[2 * dp], hi, vf[0], vf[1]);
+        fm::mma(acc[2 * dp], lo, vf[0], vf[1]);
+        fm::mma(acc[2 * dp + 1], hi, vf[2], vf[3]);
+        fm::mma(acc[2 * dp + 1], lo, vf[2], vf[3]);
+      }
+      fm::mma(lacc, hi, fm::BF16_ONES, fm::BF16_ONES);
+      fm::mma(lacc, lo, fm::BF16_ONES, fm::BF16_ONES);
+    }
+  }
+  fm::cp_async_wait<0>();
+
+  // o = acc / l through this warp's rows of the q tile (read by no other
+  // warp), then out in 16-byte stores; lse = m + log l
+  const float l0 = lacc[0] > 0.f ? lacc[0] : 1.f;
+  const float l1 = lacc[2] > 0.f ? lacc[2] : 1.f;
+  bf16* Os = Qs + w0 * P;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(Os + g * P + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(acc[n][0] / l0, acc[n][1] / l0);
+    *reinterpret_cast<__nv_bfloat162*>(Os + (g + 8) * P + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(acc[n][2] / l1, acc[n][3] / l1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int idx = lane; idx < 16 * (D / 8); idx += 32) {
+    const int r = idx / (D / 8);
+    const int c = (idx % (D / 8)) * 8;
+    if (q0 + w0 + r < Sq)
+      *reinterpret_cast<uint4*>(o + ((size_t)bh * Sq + q0 + w0 + r) * D + c) =
+          *reinterpret_cast<const uint4*>(Os + r * P + c);
+  }
+  if (t == 0) {
+    float* lrow = lse + (size_t)bh * Sq;
+    if (r0 < Sq) lrow[r0] = (m0 == fm::NEG_INF ? fm::NEG_INF : m0 * fm::LN2) + logf(l0);
+    if (r0 + 8 < Sq)
+      lrow[r0 + 8] = (m1 == fm::NEG_INF ? fm::NEG_INF : m1 * fm::LN2) + logf(l1);
+  }
+}
+
+// The kernel's dynamic shared memory above the 48 KB default.
+template <int D>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)Smem<D>::bytes);
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int B, int Hq, int Hkv, int Sq, int Sk,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  const size_t smem = Smem<D>::bytes;
+  cudaError_t err = allow_smem<D>();
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + BQ - 1) / BQ));
+  flash_fwd_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)o, (float*)lse,
+      Hq, Hkv, Sq, Sk, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t info(int* smem_bytes, int* blocks_per_sm) {
+  cudaError_t err = allow_smem<D>();
+  if (err != cudaSuccess) return err;
+  *smem_bytes = (int)Smem<D>::bytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, flash_fwd_tc_kernel<D>, THREADS, Smem<D>::bytes);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 extern "C" {
@@ -289,11 +563,19 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   Launch fn = nullptr;
   if (dtype == 0 && D == 64) fn = launch<float, 64>;
   if (dtype == 0 && D == 128) fn = launch<float, 128>;
-  if (dtype == 1 && D == 64) fn = launch<__nv_bfloat16, 64>;
-  if (dtype == 1 && D == 128) fn = launch<__nv_bfloat16, 128>;
+  if (dtype == 1 && D == 64) fn = tc::launch<64>;
+  if (dtype == 1 && D == 128) fn = tc::launch<128>;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return (int)fn(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale,
                  (cudaStream_t)stream);
+}
+
+// The bfloat16 kernel's dynamic shared memory and resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for head_dim D.
+int flash_attention_fwd_info(int D, int* smem_bytes, int* blocks_per_sm) {
+  if (D == 64) return (int)tc::info<64>(smem_bytes, blocks_per_sm);
+  if (D == 128) return (int)tc::info<128>(smem_bytes, blocks_per_sm);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* flash_attention_error_string(int code) {

@@ -189,6 +189,68 @@ def test_rejects_bad_operands():
         ops.flash_attention_fwd(q, k, v[:, :, :10].contiguous())
 
 
+# The bf16 kernel's split (csrc/flash_mma.cuh), emulated here on the CPU: a
+# float32 x enters the tensor cores as hi + lo, hi = bf16(x), lo = bf16(x − hi),
+# and each product hi·y, lo·y with a bf16 y is exact in float32.
+def _split(x):
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def test_split_reproduces_float32_within_2_pow_minus_16():
+    """Random float32 P in (0, 1] and signed dS over seven decades."""
+    rng = np.random.default_rng(0)
+    n = 200_000
+    p = np.exp(-rng.exponential(4.0, n))
+    ds = rng.normal(0, 1, n) * 10.0 ** rng.uniform(-6, 1, n)
+    for x in (p, ds):
+        x = torch.from_numpy(x.astype(np.float32))
+        hi, lo = _split(x)
+        assert bool(((x - (hi + lo)).abs() <= 2.0 ** -16 * x.abs()).all())
+
+
+# (B, Hq, Hkv, Sq, Sk, D, causal, window): MHA, GQA, window, ragged
+SPLIT_CASES = [
+    (1, 2, 2, 128, 128, 64, True, None),
+    (1, 8, 2, 128, 128, 64, True, None),
+    (1, 2, 1, 256, 256, 64, True, 32),
+    (2, 4, 2, 100, 100, 64, True, None),
+    (1, 2, 2, 100, 37, 128, False, None),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "-".join(str(x) for x in c))
+def test_split_forward_matches_plain(case):
+    """The bf16 kernel's arithmetic: P·v as hi·v + lo·v and l = Σ(hi + lo),
+    o = acc / l rounded once to bf16, agrees with the plain version within
+    the bf16 tolerance ``chip_smoke.py`` states (FLASH_BF16_TOL); and before
+    that rounding, one bf16 rounding of P (what SDPA does) errs far more
+    than the split against P·v in float64."""
+    B, Hq, Hkv, Sq, Sk, D, causal, window = case
+    q, k, v = _torch(_qkv(Sq + Sk + Hq, B, Hq, Hkv, Sq, D, Sk=Sk),
+                     torch.bfloat16)
+    group = Hq // Hkv
+    kk = k.float().repeat_interleave(group, dim=1)
+    vv = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), kk) / D ** 0.5
+    mask = ref._visible(Sq, Sk, causal, window, q.device)
+    s = s.masked_fill(~mask, ref.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill(~mask, 0.0)
+    hi, lo = _split(p)
+    acc = hi @ vv + lo @ vv
+    l = (hi + lo).sum(-1, keepdim=True)
+    o_p, _ = ref.flash_attention_fwd_torch(q, k, v, causal=causal,
+                                           window=window)
+    torch.testing.assert_close((acc / l).to(torch.bfloat16).float(),
+                               o_p.float(), **BF16_TOL)
+    exact = (p.double() @ vv.double()) / p.double().sum(-1, keepdim=True)
+    e_split = float(((acc / l).double() - exact).abs().max())
+    rounded = p.to(torch.bfloat16).float() @ vv / p.sum(-1, keepdim=True)
+    e_round = float((rounded.double() - exact).abs().max())
+    assert 50 * e_split < e_round, (e_split, e_round)
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip where there is none (decided here, at run time)."""
@@ -208,6 +270,7 @@ CARD_CASES = [
     (1, 4, 2, 256, 256, 128, True, None),     # head_dim 128
     (1, 4, 2, 1000, 1000, 64, True, None),    # ragged
     (1, 2, 2, 100, 37, 128, False, None),     # ragged, Sq != Sk
+    (1, 4, 2, 300, 428, 64, True, None),      # causal, no multiple of 128
 ]
 
 

@@ -173,6 +173,69 @@ def test_bwd_checks_its_operands():
                                    do[..., :32].contiguous(), lse, delta)
 
 
+# The bf16 dk/dv kernel's split (csrc/flash_mma.cuh), emulated here on the
+# CPU: P and dS enter the second products as hi + lo, hi = bf16(x),
+# lo = bf16(x − hi), and each product with a bf16 operand is exact in float32.
+def _split(x):
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def test_split_reproduces_p_and_ds_within_2_pow_minus_16():
+    """P and dS of a real backward, split, within 2⁻¹⁶ relative."""
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(3, 1, 4, 2, 128, 64))
+    o, lse = ref.flash_attention_fwd_torch(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    p, ds, _, _ = ref._bwd_probs(q, k, v, do, lse, delta, True, None, None)
+    assert bool((ds != 0).any())
+    for x in (p, ds):
+        hi, lo = _split(x)
+        assert bool(((x - (hi + lo)).abs() <= 2.0 ** -16 * x.abs()).all())
+
+
+# (B, Hq, Hkv, Sq, Sk, D, causal, window): MHA, GQA, window, ragged
+SPLIT_CASES = [
+    (1, 2, 2, 128, 128, 64, True, None),
+    (1, 8, 2, 128, 128, 64, True, None),
+    (1, 2, 1, 256, 256, 64, True, 32),
+    (2, 4, 2, 100, 100, 64, True, None),
+    (1, 2, 2, 100, 37, 128, False, None),
+]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "-".join(str(x) for x in c))
+def test_split_dkv_matches_plain(case):
+    """The bf16 dk/dv kernel's arithmetic: dv = Σ (hi + lo)(P)ᵀ·do and
+    dk = Σ (hi + lo)(dS)ᵀ·q, each rounded once to bf16, agree with the plain
+    version within the bf16 tolerance ``chip_smoke.py`` states
+    (FLASH_BWD_BF16_TOL); and before that rounding, one bf16 rounding of P
+    and of dS errs far more than the split against float64."""
+    B, Hq, Hkv, Sq, Sk, D, causal, window = case
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(Sq + Sk + Hq, B, Hq, Hkv, Sq, D, Sk=Sk))
+    kw = dict(causal=causal, window=window)
+    o, lse = ref.flash_attention_fwd_torch(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    p, ds, qg, dog = ref._bwd_probs(q, k, v, do, lse, delta, causal, None,
+                                    window)
+    dk_p, dv_p = ref.flash_attention_bwd_dkv_torch(q, k, v, do, lse, delta,
+                                                   **kw)
+    prod = "bhgqk,bhgqd->bhkd"
+    for name, x, y, plain in (("dv", p, dog, dv_p), ("dk", ds, qg, dk_p)):
+        hi, lo = _split(x)
+        got = torch.einsum(prod, hi, y) + torch.einsum(prod, lo, y)
+        torch.testing.assert_close(got.to(torch.bfloat16).float(),
+                                   plain.float(), **BF16_TOL,
+                                   msg=lambda m: f"{name}: {m}")
+        exact = torch.einsum(prod, x.double(), y.double())
+        e_split = float((got.double() - exact).abs().max())
+        rounded = torch.einsum(prod, x.to(torch.bfloat16).float(), y)
+        e_round = float((rounded.double() - exact).abs().max())
+        assert 50 * e_split < e_round, (name, e_split, e_round)
+
+
 @pytest.fixture
 def cuda_device():
     """The card, or a skip where there is none (decided here, at run time)."""
@@ -192,6 +255,7 @@ CARD_CASES = [
     (1, 4, 2, 1000, 1000, 64, True, None),    # ragged
     (1, 2, 2, 100, 37, 128, False, None),     # ragged, Sq != Sk
     (1, 4, 2, 128, 64, 64, True, 16),         # empty rows
+    (1, 4, 2, 300, 428, 64, True, None),      # causal, no multiple of 128
 ]
 
 
