@@ -72,9 +72,9 @@ full pass's store is still in memory; then phases 7–12. Phases:
      and the backward of ``F.scaled_dot_product_attention`` (timed only),
      with their bounds; the forward at the same shapes; the kernels' share
      of a training step and the step's model-FLOP share of the bf16 peak;
-     the dk/dv kernel's tensor operations with the split beside its bound,
-     and its ptxas registers, spills and shared memory and resident blocks
-     an SM;
+     the dq and dk/dv kernels' tensor operations with the split beside
+     their bounds and the rates they execute, and their ptxas registers,
+     spills and shared memory and resident blocks an SM;
  13. the single-direction copyscore kernel (B3, and B2 with the error
      channel) against its plain version: full squares through
      ``ops.copyscore`` and ragged rectangles (100 × 37, 64 × 130) through
@@ -88,7 +88,9 @@ full pass's store is still in memory; then phases 7–12. Phases:
      version; on the S=2048 world, the full square's counts equal to the
      engine's scan grid on its kept tiles and C→ within the tolerance; B3's
      timing per launch beside the plain version, ``torch._int_mm`` of the
-     count product alone and the bound computed from the shapes;
+     count product alone and the bound computed from the shapes, the int8
+     rates both execute, and B3's ptxas registers, spills and shared memory
+     and resident blocks an SM;
  15. the legacy per-ordered-tile dataflow (B2 on each of the 64 ordered
      tiles plus a separate non-Ē count product) against the fused one (B1
      over the 36 unordered tiles) at the JAX kernel bench's settings (the
@@ -540,30 +542,35 @@ def phase_flash_timing(torch, dev, ops, ref, card, llama) -> dict:
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": d_o}
 
 
-def _tc_report(tag: str, lib: str, entry: str, info_fn: str, D: int) -> None:
-    """Print a bf16 tensor-core kernel's ptxas report (registers, spills,
-    static shared memory) from this run's build log, and its dynamic shared
-    memory and resident blocks an SM at head_dim D from the card."""
+def _tc_report(tag: str, lib: str, entry: str, info_fn: str, D=None) -> None:
+    """Print a tensor-core kernel's ptxas report (registers, spills, static
+    shared memory) from this run's build log, and its dynamic shared memory
+    and resident blocks an SM from the card: at head_dim D for a flash
+    kernel (``info_fn(D, &smem, &blocks)``, the <D> instantiation's report),
+    or, with D None, ``info_fn(&smem, &blocks)`` and every instantiation's
+    report."""
     import ctypes
 
     from repro_torch.kernels import _build
     reports = _build.ptxas_entries(_build.BUILD_LOG.get(lib, {}).get("ptxas", ""))
-    found = [lines for name, lines in reports.items()
-             if entry in name and re.search(rf"ILi{D}E", name)]
-    for lines in found:
-        log(f"[{tag}] ptxas {entry}<{D}>: " + "; ".join(lines))
+    targ = "" if D is None else f"<{D}>"
+    found = [(name, lines) for name, lines in reports.items()
+             if entry in name and (D is None or re.search(rf"ILi{D}E", name))]
+    for name, lines in found:
+        log(f"[{tag}] ptxas {entry}{targ} ({name}): " + "; ".join(lines))
     if not found:
         log(f"[{tag}] ptxas: {entry} is not in this run's build log (a cached "
             f"library)")
     fn = getattr(_build.load(lib), info_fn)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-                   ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = ([] if D is None else [ctypes.c_int]) + [
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
     smem, blocks = ctypes.c_int(0), ctypes.c_int(0)
-    code = fn(D, ctypes.byref(smem), ctypes.byref(blocks))
+    code = fn(*([] if D is None else [D]), ctypes.byref(smem),
+              ctypes.byref(blocks))
     if code != 0:
         raise AssertionError(f"{info_fn} failed with CUDA error {code}")
-    log(f"[{tag}] {entry}<{D}>: {smem.value} B of dynamic shared memory, "
+    log(f"[{tag}] {entry}{targ}: {smem.value} B of dynamic shared memory, "
         f"{blocks.value} resident blocks an SM")
 
 
@@ -869,10 +876,18 @@ def phase_flash_bwd_timing(torch, dev, ops, ref, card, training) -> dict:
         bounds[name] = (bound, "operations" if bound == t_ops else "bytes")
         log(f"[12] {name} bound {bound:.4f} ms by {bounds[name][1]} ({flops} "
             f"operations {t_ops:.4f} ms at bf16 peak, {nbytes} B {t_bytes:.4f} ms)")
+    split_dq = 4 * 2 * D * pairs
+    log(f"[12] dq bf16 kernel's tensor operations with the split (q·kᵀ, "
+        f"do·vᵀ, then dS·k as hi + lo): {split_dq} (4/3 of the bound's "
+        f"count), {split_dq / BF16_OPS * 1e3:.4f} ms at bf16 peak; executed "
+        f"{split_dq / dq_ms / 1e9:.1f} TFLOP/s")
+    _tc_report("12", "flash_attention_bwd", "flash_bwd_dq_tc_kernel",
+               "flash_attention_bwd_dq_info", D)
     split_n = 6 * 2 * D * pairs
     log(f"[12] dk/dv bf16 kernel's tensor operations with the split (k·qᵀ, "
         f"v·doᵀ, then Pᵀ·do and dSᵀ·q each as hi + lo): {split_n} (1.5x the "
-        f"bound's count), {split_n / BF16_OPS * 1e3:.4f} ms at bf16 peak")
+        f"bound's count), {split_n / BF16_OPS * 1e3:.4f} ms at bf16 peak; "
+        f"executed {split_n / dkv_ms / 1e9:.1f} TFLOP/s")
     _tc_report("12", "flash_attention_bwd", "flash_bwd_dkv_tc_kernel",
                "flash_attention_bwd_dkv_info", D)
     log(f"[12] flash backward B={B} Hq={Hq} Hkv={Hkv} S={S} D={D} bf16 causal "
@@ -1063,11 +1078,17 @@ def phase_store(torch, np, dev, ops, ref, cfg, card, ctx, ds) -> dict:
     nbytes = S * w + 4 * S + 4 + 2 * 2 * 4 * S * S
     bound_ms, bound_by = _bound(nbytes, 2 * S * S * w,
                                 S * S * F32_PER_PAIR_BLOCK["copyscore"])
+    int8_ops = 2 * S * S * w
     log(f"[14] B3 one accumulating launch S={S} w={w} ({card}): {ms:.4f} ms; "
         f"plain version {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({nbytes} B, {2 * S * S * w} int8 operations); "
+        f"{bound_by} ({nbytes} B, {int8_ops} int8 operations); "
         f"torch._int_mm {int_mm_ms:.4f} ms — count product only; square "
         f"{launches} x {ms:.4f} = {launches * ms:.1f} ms")
+    log(f"[14] int8 operations executed: B3 {int8_ops / ms / 1e9:.1f} TOP/s "
+        f"(count product with its epilogue and accumulator traffic), "
+        f"torch._int_mm {int8_ops / int_mm_ms / 1e9:.1f} TOP/s (product "
+        f"alone), of the {INT8_OPS / 1e12:.0f} TOP/s int8 peak")
+    _tc_report("14", "copyscore", "copyscore_tc_kernel", "copyscore_info")
     del c, n, v, small
     gc.collect()
     torch.cuda.empty_cache()

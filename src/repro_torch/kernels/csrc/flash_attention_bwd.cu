@@ -2,12 +2,14 @@
 // online-softmax attention with causal masking, a sliding window and
 // grouped-query heads, from the forward's logsumexp.
 //
-// Two kernels, each replacing one TPU kernel of the JAX package's
+// Four kernels, two for each TPU kernel of the JAX package's
 // kernels/flash_attention.py (reached there through flash_attention_bwd ->
 // the custom_vjp of ops.flash_attention -> jax.value_and_grad(Model.loss)
 // on the training path):
-//   flash_bwd_dq_kernel  replaces _bwd_dq_kernel  (line 151): dq;
-//   flash_bwd_dkv_kernel replaces _bwd_dkv_kernel (line 180): dk and dv.
+//   flash_bwd_dq_tc_kernel (bf16) and flash_bwd_dq_kernel (float32)
+//     replace _bwd_dq_kernel (line 151): dq;
+//   flash_bwd_dkv_tc_kernel (bf16) and flash_bwd_dkv_kernel (float32)
+//     replace _bwd_dkv_kernel (line 180): dk and dv.
 // Both compute, for each visible (query i, key j) pair, what the TPU
 // kernels compute:
 //   s  = (q_i·k_j)·scale in float32,  p = exp(s - lse_i),
@@ -48,7 +50,7 @@
 // summed in float32). P and dS stay float32 and are never rounded to one
 // bf16 value: each enters the second products as the unevaluated sum
 // hi + lo of two bf16 values, hi = bf16(x), lo = bf16(x - hi)
-// (flash_mma.cuh), |x - (hi + lo)| ≤ 2⁻¹⁸·|x|, far below the one bf16
+// (flash_mma.cuh), |x - (hi + lo)| ≤ 2⁻¹⁷·|x|, far below the one bf16
 // rounding of dk and dv that the plain version applies too; dV += Pᵀ·dO =
 // hiᵀ·dO + loᵀ·dO and dK += dSᵀ·Q = hiᵀ·Q + loᵀ·Q, every pass exact into
 // float32 accumulators. 6 bf16 passes for 4 products: 1.5× the tensor
@@ -72,7 +74,35 @@
 // in 16-byte stores. cp.async and mma.sync, not TMA and wgmma: wgmma is
 // the next step.
 //
-// dq, and dk/dv in float32: CUDA cores. Every product is a float32 FMA
+// dq in bfloat16: tensor cores (flash_bwd_dq_tc_kernel). Numerics, the
+// contract dk/dv keeps: S = q·kᵀ and dP = do·vᵀ are one bf16 mma.sync pass
+// each; dS stays float32 and enters dq += dS·k as hi + lo (|dS - (hi +
+// lo)| ≤ 2⁻¹⁷·|dS|), two exact passes into float32 accumulators, and dq is
+// rounded once, to bf16, at the end. 4 bf16 passes for 3 products: 4/3 of
+// the tensor work the bound counts (1.375e11 operations at the training
+// step's shapes, 0.139 ms at the bf16 peak). What bounds it then is the
+// rate mma.sync reaches (on an H100 at 700 W it executes ~200 TFLOP/s of
+// that split work, the bf16 forward and dk/dv kernels 243–275, a fifth to
+// a quarter of the peak) and, beside the products, the per-pair exp2, mask
+// and split on the CUDA cores.
+// Design: grid (B·Hq, ceil(Sq/64)), heaviest query tiles first under causal
+// masking (blockIdx.y counts from the last tile). A block of 4 warps owns
+// 64 query rows of one q head (warp w owns rows 16w..16w+15) and keeps
+// their q and do fragments in registers for the whole loop over the key
+// tiles of its kv head that the causal limit and the window admit (64 keys
+// a tile at D = 64, 32 at D = 128, so that the float32 S, dP and dq
+// accumulators fit the register file). K/V tiles stream through a 3-stage
+// cp.async ring. Per tile a warp computes S and dP with the query dimension
+// as M (k and v as B operands by ldmatrix), then P = exp2(S·scale·log2e -
+// lse·log2e) and dS = P∘(dP - delta)·scale in the accumulator fragments
+// (lse and delta per row in registers, rows g and g + 8 of the warp; masked
+// only where the tile straddles the diagonal, the window, Sq or Sk), splits
+// dS in registers and feeds it straight back as the A operand of dq +=
+// dS·k, with k read through the transposing ldmatrix: dS never goes
+// through shared memory. dq stays in float32 registers for the whole loop
+// and is written once, in bf16, through shared memory in 16-byte stores.
+//
+// float32 (dq and dk/dv): CUDA cores. Every product is a float32 FMA
 // (67 TFLOP/s peak) from operands in shared memory, so in practice they
 // are bound by the FMA rate and shared-memory bandwidth, well above the
 // tensor-core bound. No measured path runs float32 attention; the float32
@@ -144,21 +174,7 @@ __device__ __forceinline__ float4 load4(const float* src) {
   return *reinterpret_cast<const float4*>(src);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
-  const uint2 u = *reinterpret_cast<const uint2*>(src);
-  __nv_bfloat162 lo, hi;
-  lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
-  hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
-  const float2 a = __bfloat1622float2(lo);
-  const float2 b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
 __device__ __forceinline__ void store1(float* dst, float x) { *dst = x; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* dst, float x) {
-  *dst = __float2bfloat16(x);                   // round to nearest even
-}
 
 __device__ __forceinline__ float fma4(float4 a, float4 b, float c) {
   c = fmaf(a.x, b.x, c);
@@ -687,12 +703,23 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// The kernel's dynamic shared memory above the 48 KB default.
-template <int D>
-cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<D>,
+// A kernel's dynamic shared memory above the 48 KB default.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)Smem<D>::bytes);
+                              (int)bytes);
+}
+
+// A kernel's dynamic shared memory and resident blocks an SM.
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, size_t bytes, int* smem_bytes,
+                      int* blocks_per_sm) {
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  *smem_bytes = (int)bytes;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel,
+                                                       THREADS, bytes);
 }
 
 template <int D>
@@ -702,7 +729,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        int Sk, int causal, int window, float scale,
                        cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes;
-  cudaError_t err = allow_smem<D>();
+  cudaError_t err = allow_smem(flash_bwd_dkv_tc_kernel<D>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(B * Hkv), (unsigned)((Sk + BKV - 1) / BKV));
   flash_bwd_dkv_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
@@ -712,13 +739,215 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// ---- dq in bfloat16 on the tensor cores -----------------------------------
+
+constexpr int BQD = 64;        // query rows per dq block: 4 warps × 16
+
+// Shared memory: the q and do tiles (bf16, pitch D + 8), then the ring of
+// k/v tiles (stage s: k at kv + 2·s·BK·P, v BK·P after it).
 template <int D>
-cudaError_t info(int* smem_bytes, int* blocks_per_sm) {
-  cudaError_t err = allow_smem<D>();
+struct SmemDq {
+  static constexpr int P = D + 8;
+  static constexpr int BK = D == 64 ? 64 : 32;  // keys per tile
+  static constexpr int STAGES = 3;
+  static constexpr int q = 0;
+  static constexpr int dO = BQD * P;
+  static constexpr int kv = 2 * BQD * P;
+  static constexpr size_t bytes =
+      (size_t)(kv + STAGES * 2 * BK * P) * sizeof(bf16);
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS)
+flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const bf16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, bf16* __restrict__ dq,
+                       int Hq, int Hkv, int Sq, int Sk, int causal, int window,
+                       float scale) {
+  using L = SmemDq<D>;
+  constexpr int P = L::P;
+  constexpr int BK = L::BK;
+  constexpr int ST = L::STAGES;
+  constexpr int KD = D / 16;                    // k-steps of S and dP
+  constexpr int NS = BK / 8;                    // n-tiles of S, dP
+  constexpr int NO = D / 8;                     // n-tiles of dq
+  extern __shared__ float4 smem_f4[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_f4);
+  bf16* Qs = smem + L::q;
+  bf16* DOs = smem + L::dO;
+
+  const int lane = threadIdx.x & 31;
+  const int w0 = (threadIdx.x >> 5) * 16;       // the warp's first row
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / Hq;
+  const int kvh = (bh % Hq) / (Hq / Hkv);
+  const int qt = causal ? (int)(gridDim.y - 1 - blockIdx.y) : (int)blockIdx.y;
+  const int q0 = qt * BQD;
+  const size_t kv_base = ((size_t)b * Hkv + kvh) * Sk * D;
+  const bf16* kb = k + kv_base;
+  const bf16* vb = v + kv_base;
+
+  // the key tiles any row of this query tile can see
+  int k_lo = 0, k_hi = Sk;
+  if (causal) k_hi = min(Sk, q0 + BQD);
+  if (window > 0) k_lo = max(0, q0 - window + 1);
+  const int kt0 = k_lo / BK;
+  const int n_tiles = k_lo < k_hi ? (k_hi + BK - 1) / BK - kt0 : 0;
+
+  auto load_kv = [&](int i) {
+    bf16* Ks = smem + L::kv + (i % ST) * 2 * BK * P;
+    fm::cp_tile<D, BK, THREADS>(Ks, kb, (kt0 + i) * BK, Sk);
+    fm::cp_tile<D, BK, THREADS>(Ks + BK * P, vb, (kt0 + i) * BK, Sk);
+  };
+  // group s holds tile s (and group 0 the q and do tiles)
+  if (n_tiles > 0) {
+    fm::cp_tile<D, BQD, THREADS>(Qs, q + (size_t)bh * Sq * D, q0, Sq);
+    fm::cp_tile<D, BQD, THREADS>(DOs, dout + (size_t)bh * Sq * D, q0, Sq);
+  }
+#pragma unroll
+  for (int s = 0; s < ST - 1; ++s) {
+    if (s < n_tiles) load_kv(s);
+    fm::cp_async_commit();
+  }
+
+  // rows r0 and r0 + 8: −lse in log2 units and delta; rows past Sq take 0
+  // (their q and do are zero, so their p is finite and their dS 0; they
+  // are never stored)
+  const int r0 = q0 + w0 + g;
+  const float* lrow = lse + (size_t)bh * Sq;
+  const float* drow = delta + (size_t)bh * Sq;
+  const float nl0 = r0 < Sq ? -lrow[r0] * fm::LOG2E : 0.f;
+  const float nl1 = r0 + 8 < Sq ? -lrow[r0 + 8] * fm::LOG2E : 0.f;
+  const float dl0 = r0 < Sq ? drow[r0] : 0.f;
+  const float dl1 = r0 + 8 < Sq ? drow[r0 + 8] : 0.f;
+  const float sl2 = scale * fm::LOG2E;          // scores in log2 units
+  uint32_t qf[KD][4], df[KD][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int i = 0; i < n_tiles; ++i) {
+    fm::cp_async_wait<ST - 2>();                // tile i has landed
+    __syncthreads();                            // ... for every thread; tile i-1 consumed
+    if (i + ST - 1 < n_tiles) load_kv(i + ST - 1);
+    fm::cp_async_commit();
+    if (i == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KD; ++kk) {
+        const int off = (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8;
+        fm::ldsm_x4(qf[kk], Qs + off);
+        fm::ldsm_x4(df[kk], DOs + off);
+      }
+    }
+    const bf16* Ks = smem + L::kv + (i % ST) * 2 * BK * P;
+    const bf16* Vs = Ks + BK * P;
+    const int k0 = (kt0 + i) * BK;
+    // a tile none of this warp's rows can see adds nothing
+    if ((causal && k0 > q0 + w0 + 15) ||
+        (window > 0 && q0 + w0 - (k0 + BK - 1) >= window))
+      continue;
+
+    // S = q·kᵀ and dP = do·vᵀ: n-tile j holds keys k0 + 8j .. + 7
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = 0.f;
+        dp[j][e] = 0.f;
+      }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+#pragma unroll
+      for (int jp = 0; jp < NS / 2; ++jp) {
+        const int off = (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                        kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t kf[4], vf[4];
+        fm::ldsm_x4(kf, Ks + off);
+        fm::ldsm_x4(vf, Vs + off);
+        fm::mma(s[2 * jp], qf[kk], kf[0], kf[1]);
+        fm::mma(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+        fm::mma(dp[2 * jp], df[kk], vf[0], vf[1]);
+        fm::mma(dp[2 * jp + 1], df[kk], vf[2], vf[3]);
+      }
+
+    // P = exp(S - lse) on visible pairs (0 by selection elsewhere: an
+    // empty row's lse is NEG_INF), dS = P∘(dP - delta)·scale, into s
+    const bool full = k0 + BK <= Sk && (!causal || k0 + BK - 1 <= q0 + w0) &&
+                      (window <= 0 || q0 + w0 + 15 - k0 < window);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = k0 + 8 * j + 2 * t + (e & 1);
+        const int r = e < 2 ? r0 : r0 + 8;
+        float p = exp2f(fmaf(s[j][e], sl2, e < 2 ? nl0 : nl1));
+        if (!full && !fm::visible(r, c, Sq, Sk, causal, window)) p = 0.f;
+        s[j][e] = p * (dp[j][e] - (e < 2 ? dl0 : dl1)) * scale;
+      }
+
+    // dq += dS·k as hi + lo: k-step kk is keys k0 + 16kk .. + 15
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t hi[4], lo[4];
+      fm::split_a(s[2 * kk], s[2 * kk + 1], hi, lo);
+#pragma unroll
+      for (int dp2 = 0; dp2 < D / 16; ++dp2) {
+        uint32_t kf[4];
+        fm::ldsm_x4_t(kf, Ks + (kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * P +
+                              dp2 * 16 + ((lane >> 4) << 3));
+        fm::mma(acc[2 * dp2], hi, kf[0], kf[1]);
+        fm::mma(acc[2 * dp2], lo, kf[0], kf[1]);
+        fm::mma(acc[2 * dp2 + 1], hi, kf[2], kf[3]);
+        fm::mma(acc[2 * dp2 + 1], lo, kf[2], kf[3]);
+      }
+    }
+  }
+  fm::cp_async_wait<0>();
+
+  // dq through this warp's rows of the q tile (read by no other warp),
+  // then out in 16-byte stores
+  bf16* dQs = Qs + w0 * P;
+  __syncwarp();
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(dQs + g * P + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(acc[n][0], acc[n][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dQs + (g + 8) * P + 8 * n + 2 * t) =
+        __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int idx = lane; idx < 16 * (D / 8); idx += 32) {
+    const int r = idx / (D / 8);
+    const int c = (idx % (D / 8)) * 8;
+    if (q0 + w0 + r < Sq)
+      *reinterpret_cast<uint4*>(dq + ((size_t)bh * Sq + q0 + w0 + r) * D + c) =
+          *reinterpret_cast<const uint4*>(dQs + r * P + c);
+  }
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const void* lse, const void* delta,
+                      void* dq, int B, int Hq, int Hkv, int Sq, int Sk,
+                      int causal, int window, float scale,
+                      cudaStream_t stream) {
+  const size_t smem = SmemDq<D>::bytes;
+  cudaError_t err = allow_smem(flash_bwd_dq_tc_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  *smem_bytes = (int)Smem<D>::bytes;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, flash_bwd_dkv_tc_kernel<D>, THREADS, Smem<D>::bytes);
+  const dim3 grid((unsigned)(B * Hq), (unsigned)((Sq + BQD - 1) / BQD));
+  flash_bwd_dq_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
+      (const float*)lse, (const float*)delta, (bf16*)dq, Hq, Hkv, Sq, Sk,
+      causal, window, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace tc
@@ -748,8 +977,8 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
   Launch fn = nullptr;
   if (dtype == 0 && D == 64) fn = launch_dq<float, 64>;
   if (dtype == 0 && D == 128) fn = launch_dq<float, 128>;
-  if (dtype == 1 && D == 64) fn = launch_dq<__nv_bfloat16, 64>;
-  if (dtype == 1 && D == 128) fn = launch_dq<__nv_bfloat16, 128>;
+  if (dtype == 1 && D == 64) fn = tc::launch_dq<64>;
+  if (dtype == 1 && D == 128) fn = tc::launch_dq<128>;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return (int)fn(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Sk, causal,
                  window, scale, (cudaStream_t)stream);
@@ -778,11 +1007,29 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k,
                  causal, window, scale, (cudaStream_t)stream);
 }
 
+// The bfloat16 dq kernel's dynamic shared memory and resident blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for head_dim D.
+int flash_attention_bwd_dq_info(int D, int* smem_bytes, int* blocks_per_sm) {
+  if (D == 64)
+    return (int)tc::occupancy(tc::flash_bwd_dq_tc_kernel<64>,
+                              tc::SmemDq<64>::bytes, smem_bytes, blocks_per_sm);
+  if (D == 128)
+    return (int)tc::occupancy(tc::flash_bwd_dq_tc_kernel<128>,
+                              tc::SmemDq<128>::bytes, smem_bytes,
+                              blocks_per_sm);
+  return (int)cudaErrorInvalidValue;
+}
+
 // The bfloat16 dk/dv kernel's dynamic shared memory and resident blocks an
 // SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) for head_dim D.
 int flash_attention_bwd_dkv_info(int D, int* smem_bytes, int* blocks_per_sm) {
-  if (D == 64) return (int)tc::info<64>(smem_bytes, blocks_per_sm);
-  if (D == 128) return (int)tc::info<128>(smem_bytes, blocks_per_sm);
+  if (D == 64)
+    return (int)tc::occupancy(tc::flash_bwd_dkv_tc_kernel<64>,
+                              tc::Smem<64>::bytes, smem_bytes, blocks_per_sm);
+  if (D == 128)
+    return (int)tc::occupancy(tc::flash_bwd_dkv_tc_kernel<128>,
+                              tc::Smem<128>::bytes, smem_bytes,
+                              blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }
 

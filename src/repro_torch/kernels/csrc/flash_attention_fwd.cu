@@ -36,7 +36,7 @@
 // that keeps what the TPU kernel computes: q·kᵀ is one bf16 mma.sync pass
 // (exact products of bf16 values summed in float32). P stays float32 and
 // enters P·V as the unevaluated sum hi + lo of two bf16 values, hi =
-// bf16(p), lo = bf16(p - hi) (flash_mma.cuh): |p - (hi + lo)| ≤ 2⁻¹⁸·p,
+// bf16(p), lo = bf16(p - hi) (flash_mma.cuh): |p - (hi + lo)| ≤ 2⁻¹⁷·p,
 // far below the one bf16 rounding of o that the plain version applies too,
 // and P·V = hi·V + lo·V, two exact passes into float32 accumulators. P is
 // never rounded to one bf16 value (what SDPA does and the TPU kernel does

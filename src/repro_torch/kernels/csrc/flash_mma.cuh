@@ -18,9 +18,12 @@
 //
 // The split. A float32 x enters the tensor cores as the unevaluated sum of
 // two bf16 values, hi = bf16(x) and lo = bf16(x − hi) (both round to
-// nearest even). x − hi is exact in float32, so |x − (hi + lo)| ≤ 2⁻⁹·|x − hi|
-// ≤ 2⁻¹⁸·|x|. Each of hi·y and lo·y for a bf16 y is exact in the float32
-// accumulator, so two passes give Σ x·y to float32 summation round-off.
+// nearest even, 8 significant bits). x − hi is exact in float32 and at most
+// half an ulp of hi, and lo rounds it once more, so |x − (hi + lo)| ≤
+// 2⁻¹⁷·|x| (attained near x = 1 + 2⁻⁹; every float32 of [1, 2) is checked
+// in tests/test_torch_flash_bwd.py). Each of hi·y and lo·y for a bf16 y is
+// exact in the float32 accumulator, so two passes give Σ x·y to float32
+// summation round-off.
 
 #pragma once
 

@@ -17,10 +17,11 @@
                            columns, with the error channel when given δ;
 ``copyscore_store``      — the full square streamed from a chunked
                            ``CorpusStore``, one launch per live chunk,
-                           accumulated on the device. All three reach one
-                           hand-written kernel (``csrc/copyscore.cu``: B3,
-                           and B2 with the error channel) on a CUDA tensor,
-                           and ``ref.copyscore_torch`` on a CPU tensor.
+                           accumulated on the device. All three reach
+                           ``csrc/copyscore.cu`` on a CUDA tensor (B3 on
+                           the int8 tensor cores; B2, the error channel,
+                           on the CUDA cores), and ``ref.copyscore_torch``
+                           on a CPU tensor.
 ``pad_for_copyscore``    — host-side padding of buckets and rows to kernel
                            block multiples.
 
@@ -189,7 +190,8 @@ def copyscore_tile_fused(v_rows, v_cols, p_blk, acc_rows, acc_cols, *,
 # single-direction copyscore: the full square, one pair tile, a chunked store
 # ---------------------------------------------------------------------------
 
-#: the kernel's grid holds at most 65535 row blocks of 64
+#: B2's grid holds at most 65535 row blocks of 64 (B3's 1-D grid of 128×128
+#: tiles holds far more)
 _MAX_ROWS = 65535 * 64
 
 
@@ -340,8 +342,9 @@ def copyscore(v, p_blk, acc, *, s: float, n_false: float, block_i: int = 128,
     CPU tensor (or a numpy array) takes ``ref.copyscore_torch``; a CUDA
     tensor launches the hand-written kernel (``csrc/copyscore.cu``, int8
     incidence, ``block_e`` a multiple of 4) or raises. ``block_i`` and
-    ``block_j`` are the JAX signature's Pallas tile; the kernel masks ragged
-    edges in its own 64×64 blocks, so they change nothing here.
+    ``block_j`` are the JAX signature's Pallas tile; the kernels mask ragged
+    edges in their own tiles (B3 128×128, B2 64×64), so they change nothing
+    here.
     """
     out, launched = _pair_block(v, v, p_blk, acc, acc, s=s, n_false=n_false,
                                 block_e=block_e, delta_blk=None)

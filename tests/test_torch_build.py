@@ -58,7 +58,8 @@ def test_flash_sources_hash_their_shared_header():
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         assert [p.name for p in _build._sources(name)] == [f"{name}.cu",
                                                           "flash_mma.cuh"]
-    assert [p.name for p in _build._sources("copyscore")] == ["copyscore.cu"]
+    assert [p.name for p in _build._sources("copyscore")] == [
+        "copyscore.cu", "copyscore_mma.cuh", "flash_mma.cuh"]
 
 
 def test_a_library_found_on_disk_keeps_this_process_build_log(csrc):

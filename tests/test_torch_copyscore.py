@@ -267,3 +267,80 @@ def test_kernel_takes_whole_words_only(cuda_device):
     want = ops.copyscore_store(store, np.full(4, 0.3), acc, s=S_PARAM,
                                n_false=N_FALSE)
     _assert_outputs([g.cpu() for g in got], want)
+
+
+@pytest.mark.gpu
+def test_all_ones_counts_are_exact_on_card(cuda_device):
+    """An all-ones incidence 4096 wide: every count is exactly 4096, the
+    int32 count carried to float32 unrounded (a bf16 or fp8 path could not
+    hold it), and C→ agrees with the plain version."""
+    S, w = 160, 4096
+    rng = np.random.default_rng(11)
+    v = torch.ones((S, w), dtype=torch.int8)
+    p = torch.tensor([0.3])
+    a = torch.from_numpy(rng.uniform(0.05, 0.95, S).astype(np.float32))
+    kw = dict(s=S_PARAM, n_false=N_FALSE, block_e=w)
+    ops.copyscore.launches = 0
+    got = ops.copyscore(v.to(cuda_device), p.to(cuda_device),
+                        a.to(cuda_device), **kw)
+    torch.cuda.synchronize()
+    assert ops.copyscore.launches == 1
+    assert torch.equal(got[1].cpu(), torch.full((S, S), float(w)))
+    _assert_outputs([g.cpu() for g in got], ref.copyscore_torch(v, p, a, **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_e", [1, 3])
+def test_accumulate_adds_onto_outputs_on_card(cuda_device, n_e):
+    """accumulate=1 onto non-zero outputs: they end as what they held plus
+    the plain version's sums (counts exactly; C→ within the tolerance), for
+    one entry block (the store path's launch) and for three."""
+    w = 64
+    x = _instance(21 + n_e, 150, 140, n_e, w)
+    c = {k: torch.from_numpy(v).to(cuda_device) for k, v in x.items()}
+    rng = np.random.default_rng(5)
+    c0 = torch.from_numpy(rng.normal(0, 3, (150, 140)).astype(np.float32))
+    n0 = torch.from_numpy(rng.integers(0, 50, (150, 140)).astype(np.float32))
+    outs = (c0.to(cuda_device), n0.to(cuda_device))
+    kw = dict(s=S_PARAM, n_false=N_FALSE)
+    small = ops._single_operands(c["v_r"], c["v_c"], c["a_r"], c["a_c"],
+                                 c["p"], None, w)
+    ops._launch_single(c["v_r"], c["v_c"], small, outs, block_e=w,
+                       accumulate=True, **kw)
+    torch.cuda.synchronize()
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    want = ref.copyscore_torch(t["v_r"], t["p"], t["a_r"], v_cols=t["v_c"],
+                               acc_cols=t["a_c"], block_e=w, **kw)
+    _assert_outputs([o.cpu() for o in outs], (c0 + want[0], n0 + want[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("aligned", [True, False], ids=["16-byte", "4-byte"])
+def test_wide_block_at_ragged_shape_on_card(cuda_device, aligned):
+    """block_e = 4096 at a ragged 300 × 200 block: rows on 16-byte
+    boundaries take the kernel's 16-byte loads, rows 4 bytes past one its
+    4-byte loads; both against the plain version, edges included."""
+    x = _instance(30, 300, 200, 1, 4096)
+
+    def on_card(a):
+        t = torch.from_numpy(a).to(cuda_device)
+        if aligned:
+            return t
+        buf = torch.empty(t.numel() + 32, dtype=torch.int8, device=cuda_device)
+        off = (-buf.data_ptr()) % 16 + 4
+        view = buf[off: off + t.numel()].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4
+        return view
+
+    v_r, v_c = on_card(x["v_r"]), on_card(x["v_c"])
+    c = {k: torch.from_numpy(x[k]).to(cuda_device) for k in ("p", "a_r", "a_c")}
+    kw = dict(s=S_PARAM, n_false=N_FALSE, block_e=4096)
+    ops.copyscore_tile.launches = 0
+    got = ops.copyscore_tile(v_r, v_c, c["p"], c["a_r"], c["a_c"], **kw)
+    torch.cuda.synchronize()
+    assert ops.copyscore_tile.launches == 1
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    want = ref.copyscore_torch(t["v_r"], t["p"], t["a_r"], v_cols=t["v_c"],
+                               acc_cols=t["a_c"], **kw)
+    _assert_outputs([g.cpu() for g in got], want)

@@ -7,8 +7,10 @@ same seeded numpy inputs and the same (o, lse) from the JAX forward, at
 multiples of 64 only: the JAX wrapper floors ragged tile counts (ROADMAP
 C5). Then the CPU ``FlashAttention`` Function's gradient against autograd
 of ``ref.attention_ref``, ragged sizes and rows with nothing visible
-included; the wrappers' checks; and, on a card, the two hand-written
-kernels against their plain versions.
+included; the wrappers' checks; the bf16 kernels' hi + lo split of P and
+dS, emulated on the CPU (its error bound, and dq, dk, dv computed through
+it against the plain versions); and, on a card, the hand-written kernels
+against their plain versions.
 
 Tolerances. float32 dq, dk, dv within rtol/atol 2e-5: the same float32
 arithmetic summed in another order (observed ≤ 5e-6 on entries up to ≈ 8).
@@ -173,12 +175,24 @@ def test_bwd_checks_its_operands():
                                    do[..., :32].contiguous(), lse, delta)
 
 
-# The bf16 dk/dv kernel's split (csrc/flash_mma.cuh), emulated here on the
-# CPU: P and dS enter the second products as hi + lo, hi = bf16(x),
+# The bf16 backward kernels' split (csrc/flash_mma.cuh), emulated here on
+# the CPU: P and dS enter the second products as hi + lo, hi = bf16(x),
 # lo = bf16(x − hi), and each product with a bf16 operand is exact in float32.
 def _split(x):
     hi = x.to(torch.bfloat16).float()
     return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def test_split_error_bound_is_2_pow_minus_17():
+    """The bound the kernels' source notes state, |x − (hi + lo)| ≤
+    2⁻¹⁷·|x|, over every float32 of [1, 2) (the relative error repeats in
+    every binade); and it is attained to within 1 %, so 2⁻¹⁸ would be
+    wrong."""
+    x = torch.arange(0x3F800000, 0x40000000, dtype=torch.int32).view(
+        torch.float32)
+    hi, lo = _split(x)
+    rel = float(((x - (hi + lo)).double().abs() / x.double()).max())
+    assert 0.99 * 2.0 ** -17 < rel <= 2.0 ** -17
 
 
 def test_split_reproduces_p_and_ds_within_2_pow_minus_16():
@@ -234,6 +248,35 @@ def test_split_dkv_matches_plain(case):
         rounded = torch.einsum(prod, x.to(torch.bfloat16).float(), y)
         e_round = float((rounded.double() - exact).abs().max())
         assert 50 * e_split < e_round, (name, e_split, e_round)
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "-".join(str(x) for x in c))
+def test_split_dq_matches_plain(case):
+    """The bf16 dq kernel's arithmetic: S and dP exact from bf16 inputs in
+    float32, dS split, dq = Σ (hi + lo)(dS)·k rounded once to bf16, agrees
+    with the plain version within the bf16 tolerance ``chip_smoke.py``
+    states (FLASH_BWD_BF16_TOL); and before that rounding, one bf16
+    rounding of dS errs far more than the split against float64."""
+    B, Hq, Hkv, Sq, Sk, D, causal, window = case
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16)
+                   for a in _inputs(Sq + Sk + Hq + 1, B, Hq, Hkv, Sq, D, Sk=Sk))
+    kw = dict(causal=causal, window=window)
+    o, lse = ref.flash_attention_fwd_torch(q, k, v, **kw)
+    delta = (do.float() * o.float()).sum(-1)
+    _, ds, _, _ = ref._bwd_probs(q, k, v, do, lse, delta, causal, None, window)
+    plain = ref.flash_attention_bwd_dq_torch(q, k, v, do, lse, delta, **kw)
+    prod = "bhgqk,bhkd->bhgqd"
+    kf = k.float()
+    hi, lo = _split(ds)
+    got = torch.einsum(prod, hi, kf) + torch.einsum(prod, lo, kf)
+    torch.testing.assert_close(got.reshape(q.shape).to(torch.bfloat16).float(),
+                               plain.float(), **BF16_TOL)
+    exact = torch.einsum(prod, ds.double(), kf.double())
+    e_split = float((got.double() - exact).abs().max())
+    rounded = torch.einsum(prod, ds.to(torch.bfloat16).float(), kf)
+    e_round = float((rounded.double() - exact).abs().max())
+    assert 50 * e_split < e_round, (e_split, e_round)
 
 
 @pytest.fixture
