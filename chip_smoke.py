@@ -16,10 +16,12 @@ full pass's store is still in memory; then phases 7–12. Phases:
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build every kernel under ``src/repro_torch/kernels/csrc`` from the
      checkout (seconds, ptxas registers / shared memory / spills);
-  3. the copyscore kernel against its plain PyTorch version on the same
-     device tensors: rectangular and diagonal tiles (C← == C→ᵀ bit for bit),
-     (-1,-1) slots left untouched, w ∈ {8, 40, the full pass's chunk
-     width}, Gc ∈ {1, 3}; counts equal, scores within rtol 2e-5 / atol 1e-4;
+  3. the copyscore kernel (B1, int8 tensor cores) against its plain
+     PyTorch version on the same device tensors: rectangular and diagonal
+     tiles (C← == C→ᵀ bit for bit), (-1,-1) slots left untouched, T ∈ {96,
+     128, 256}, w ∈ {8, 40, the full pass's chunk width}, Gc ∈ {1, 2, 3}
+     (both of B1's variants at the full chunk width); counts equal, scores
+     within rtol 2e-5 / atol 1e-4;
   4. decisions held against the exact INDEX on the S=512 book-like world,
      at tiles 128 and 256, and at S=2048 under a 1 MiB cap on every
      incidence allocation and group slab, with kernel launches > 0;
@@ -28,8 +30,11 @@ full pass's store is still in memory; then phases 7–12. Phases:
      recall of the planted copy pairs, and a sample of the pass's groups
      held kernel against plain version;
   6. timing of the kernel at the full pass's shapes (CUDA events) beside
-     the plain version, ``torch._int_mm`` of the count product alone, and
-     the bound from the kernel's note;
+     the plain version, ``torch._int_mm`` of the count product alone over
+     the full square and over exactly the live r ≤ c tiles (one call per
+     row block, the same work), and the bound computed from the shapes;
+     the int8 rate B1 executes, its ptxas registers, spills and shared
+     memory and resident blocks an SM; two launches bit-equal;
   7. the flash-attention kernel against its plain PyTorch version on the
      card: MHA, GQA (group 4), MQA, causal and not, windows 32 and 100,
      head_dim 64 and 128, float32 (CUDA cores) and bfloat16 (tensor cores,
@@ -95,8 +100,13 @@ full pass's store is still in memory; then phases 7–12. Phases:
      tiles plus a separate non-Ē count product) against the fused one (B1
      over the 36 unordered tiles) at the JAX kernel bench's settings (the
      S=2048 world, tile 256, 64 buckets from ``bucketize_engine``,
-     ``pad_buckets`` int8): grids agree, both times and their ratio, and
-     B2's timing at one tile's shapes with its bound;
+     ``pad_buckets`` int8): grids agree, both times and their ratio; B2 at
+     one tile's shapes against its plain version (counts equal, C→ and err
+     within rtol 2e-5 / atol 1e-4), two launches bit-equal, its time a call
+     (the record's) and on the card alone beside its bound and
+     ``torch._int_mm`` of the tile's count product (the same product,
+     without the epilogue) timed both ways, the int8 rates, B2's ptxas
+     report and resident blocks an SM;
  16. the mutation path at S=512: commits of 8 and 32 rows, a retraction,
      its rollback, the retraction again and a compaction; after each step
      the bucketed engine on the card over the mutated index decides like
@@ -289,6 +299,23 @@ def _time_ms(torch, fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    z.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(z) / reps
+
+
+def _device_ms(torch, fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` on the card alone, CUDA events, after one
+    warm-up run: the card first sleeps ~1 ms a run (``torch.cuda._sleep``
+    of 2e6 cycles at the H100's ~2 GHz) while the host enqueues the runs,
+    so the host's time between launches of a short kernel is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * reps))
     a.record()
     for _ in range(reps):
         fn()
@@ -1216,24 +1243,54 @@ def phase_legacy(torch, np, dev, ops, ref, cfg, card) -> dict:
 
     # B2 at one ordered tile's shapes
     (vr, a_r), (vc, a_c) = rows(0), rows(1)
-    ms = _time_ms(torch, lambda: ops.copyscore_tile(
-        vr, vc, p_hat, a_r, a_c, block_e=w, delta_blk=d, **kw), 20)
-    plain_ms = _time_ms(torch, lambda: ref.copyscore_torch(
-        vr, p_hat, a_r, v_cols=vc, acc_cols=a_c, delta_blk=d, block_e=w, **kw),
-        3)
+
+    def b2():
+        return ops.copyscore_tile(vr, vc, p_hat, a_r, a_c, block_e=w,
+                                  delta_blk=d, **kw)
+
+    once, again = b2(), b2()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(once, again)):
+        raise AssertionError("B2: two launches on the same inputs differ")
+
+    def plain():
+        return ref.copyscore_torch(vr, p_hat, a_r, v_cols=vc, acc_cols=a_c,
+                                   delta_blk=d, block_e=w, **kw)
+
+    b2_err = _compare_single(torch, once, plain())
+    ms = _time_ms(torch, b2, 20)
+    dev_ms = _device_ms(torch, b2, 20)
+    plain_ms = _time_ms(torch, plain, 3)
     int_mm_ms = _time_ms(torch, lambda: torch._int_mm(vr, vc.t()), 20)
+    int_mm_dev_ms = _device_ms(torch, lambda: torch._int_mm(vr, vc.t()), 20)
     E = K * w
     nbytes = 2 * T * E + 2 * 4 * T + 2 * 4 * K + 3 * 4 * T * T
     bound_ms, bound_by = _bound(nbytes, 2 * T * T * E,
                                 T * T * K * F32_PER_PAIR_BLOCK["copyscore_err"])
-    log(f"[15] B2 one tile {T}x{T}, E={E} ({K} blocks of {w}): {ms:.4f} ms; "
-        f"plain version {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by "
-        f"{bound_by} ({nbytes} B); torch._int_mm {int_mm_ms:.4f} ms — count "
-        f"product only")
-    for x in (ms, plain_ms, int_mm_ms, bound_ms, leg_ms, fus_ms):
+    splits = ops._err_splits(K, T, T, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    log(f"[15] B2 one tile {T}x{T}, E={E} ({K} blocks of {w}, {splits} "
+        f"ranges of entry blocks, then the range sum): B2 == plain version "
+        f"(counts equal, max |Δ| C→/err {b2_err:.3e}); {ms:.4f} ms a call of "
+        f"ops.copyscore_tile ({dev_ms:.4f} ms on the card alone, the host "
+        f"path not counted); plain version {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B); torch._int_mm "
+        f"{int_mm_ms:.4f} ms a call ({int_mm_dev_ms:.4f} ms on the card alone) "
+        f"— the same count product over the tile, without the epilogue; two "
+        f"launches bit-equal")
+    ops_tile = 2 * T * T * E
+    log(f"[15] int8 operations executed: B2 {ops_tile / ms / 1e9:.1f} TOP/s "
+        f"a call ({ops_tile / dev_ms / 1e9:.1f} on the card alone), "
+        f"torch._int_mm {ops_tile / int_mm_ms / 1e9:.1f} TOP/s a call "
+        f"({ops_tile / int_mm_dev_ms / 1e9:.1f} on the card alone), of the "
+        f"{INT8_OPS / 1e12:.0f} TOP/s int8 peak")
+    _tc_report("15", "copyscore", "copyscore_tc_kernelILb1ELb1E",
+               "copyscore_err_info")
+    for x in (ms, dev_ms, plain_ms, int_mm_ms, int_mm_dev_ms, bound_ms, leg_ms,
+              fus_ms):
         if not math.isfinite(x) or x <= 0:
             raise AssertionError("a timing is not a positive number")
-    return {"launches": launches, "max_abs_err": worst, "ms": ms,
+    return {"launches": launches, "max_abs_err": b2_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
@@ -1397,7 +1454,8 @@ def main() -> int:
     w_full = EngineOptions().chunk_group_bytes // FULL_SOURCES
     worst = 0.0
     for T, nb, Gc, w in ((256, 3, 1, 8), (256, 3, 3, 40), (96, 3, 3, 40),
-                         (256, 2, 1, w_full)):
+                         (128, 3, 1, 40), (256, 2, 1, w_full),
+                         (256, 2, 2, w_full)):
         ops.tile_scores.launches = 0
         args = _group_inputs(rng, torch, dev, T, nb, Gc, w)
         err = _compare_group(torch, ops, ref, *args, T, cfg)
@@ -1518,10 +1576,33 @@ def main() -> int:
     stacks = [torch.zeros((n, T, T), device=dev) for _ in range(5)]
     args = (v, acc, p_g, d_g, o_g, coords_g, stacks)
     kw = dict(tile=T, s=cfg.s, n_false=cfg.n)
+    ops.tile_scores(*args, **kw)                # two launches from zero
+    first = [x.clone() for x in stacks]
+    for x in stacks:
+        x.zero_()
+    ops.tile_scores(*args, **kw)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, stacks)):
+        raise AssertionError("B1: two launches on the same inputs differ")
+    del first
     ms = _time_ms(torch, lambda: ops.tile_scores(*args, **kw), 10)
     plain_ms = _time_ms(torch, lambda: ref.tile_scores_torch(*args, **kw), 2)
     v2 = v.reshape(ctx.S_pad, -1)
     int_mm_ms = _time_ms(torch, lambda: torch._int_mm(v2, v2.t()), 5)
+    live_rows = coords_g[coords_g[:, 0] >= 0].cpu().tolist()
+    row_first = {}
+    for r, c in live_rows:
+        row_first[r] = min(c, row_first.get(r, c))
+
+    def live_product():                     # the same pairs B1 scores
+        for r, c0 in row_first.items():
+            torch._int_mm(v2[r * T:(r + 1) * T], v2[c0 * T:].t())
+
+    # the calls cover the live pairs exactly when every row's live tiles
+    # run from its first live column to the last column
+    same_pairs = len(live_rows) == sum(ctx.S_pad // T - c0
+                                       for c0 in row_first.values())
+    live_mm_ms = _time_ms(torch, live_product, 5)
     live = int(gmask.sum())
     Gc, w = ctx.Gc, ctx.ech.width
     nbytes = v.numel() + live * 5 * 4 * T * T * 2
@@ -1532,16 +1613,26 @@ def main() -> int:
     bound_ms = max(t_bytes, t_i8, t_f32)
     bound_by = "bytes" if bound_ms == t_bytes else "operations"
     log(f"[6] one group at the full pass's shapes: {live} live tiles of "
-        f"{T}x{T}, Gc={Gc}, w={w}, slab {tuple(v.shape)} ({card})")
+        f"{T}x{T}, Gc={Gc}, w={w}, slab {tuple(v.shape)} ({card}); two "
+        f"launches bit-equal")
     log(f"[6] kernel {ms:.4f} ms; plain version {plain_ms:.4f} ms; bound "
         f"{bound_ms:.4f} ms by {bound_by} (bytes {t_bytes:.4f} ms for "
         f"{nbytes} B, int8 {t_i8:.4f} ms, f32 {t_f32:.4f} ms)")
-    log(f"[6] torch._int_mm {int_mm_ms:.4f} ms — count product only, not the "
-        f"fused function (the full {ctx.S_pad}^2 square, w·Gc={w * Gc})")
+    log(f"[6] torch._int_mm, count product only, not the fused function: "
+        f"{int_mm_ms:.4f} ms over the full {ctx.S_pad}^2 square (w·Gc="
+        f"{w * Gc}); {live_mm_ms:.4f} ms over the live tiles' rows, one call "
+        f"per row block from its first live column ({len(row_first)} calls; "
+        f"the same pairs as B1: {same_pairs})")
+    log(f"[6] int8 operations executed: B1 {int8_ops / ms / 1e9:.1f} TOP/s "
+        f"(with its five-channel epilogue and stack traffic), torch._int_mm "
+        f"over the live tiles {int8_ops / live_mm_ms / 1e9:.1f} TOP/s "
+        f"(product alone), of the {INT8_OPS / 1e12:.0f} TOP/s int8 peak")
+    _tc_report("6", "copyscore_fused", "copyscore_fused_kernel",
+               "copyscore_fused_info")
     log(f"[6] full pass: {launches} launches, kernel device time "
         f"{st['scan_kernel_ms']:.3f} ms; bound × launches "
         f"{bound_ms * launches:.3f} ms")
-    for x in (ms, plain_ms, int_mm_ms, bound_ms):
+    for x in (ms, plain_ms, int_mm_ms, live_mm_ms, bound_ms):
         if not math.isfinite(x) or x <= 0:
             raise AssertionError("a timing is not a positive number")
     b1 = {"launches": launches, "max_abs_err": worst, "ms": ms,

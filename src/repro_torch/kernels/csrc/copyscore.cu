@@ -5,9 +5,11 @@
 // copyscore_pallas (kernels/copyscore.py):
 //   _copyscore_kernel      (C→, n)       — ops.copyscore, ops.copyscore_store,
 //                                           ops.copyscore_tile without δ:
-//                                           copyscore_tc_kernel (B3);
+//                                           copyscore_tc_kernel<·, false>
+//                                           (B3);
 //   _copyscore_err_kernel  (C→, n, err)  — ops.copyscore_tile with δ:
-//                                           copyscore_err_kernel (B2).
+//                                           copyscore_tc_kernel<true, true>
+//                                           (B2).
 //
 // Rows copy from columns. For every pair (i, j) of the S_i × S_j block and
 // every entry block b of width block_e (one p̂_b, and δ_b for B2):
@@ -30,7 +32,7 @@
 //
 // B3, copyscore_tc_kernel: the count product on the int8 tensor cores
 // (mma.sync m16n8k32 s8·s8→s32, copyscore_mma.cuh), because on the CUDA
-// cores (__dp4a, 4 multiply-adds an instruction) that product alone held the
+// cores (dp4a, 4 multiply-adds an instruction) that product alone held the
 // kernel at ~40× the bound. Design: a 1-D grid of 128×128 pair tiles, taken
 // in groups of 16 tile rows so that the blocks in flight share their rows'
 // and columns' incidence in L2 (each incidence byte is read by S/128
@@ -53,187 +55,54 @@
 // traffic overlapping the other's products; with more entry blocks
 // (SUMS) the sums keep their own 136 KB of shared memory for the whole
 // loop, one block an SM. On an H100 at 700 W a store launch takes ~6.6 ms,
-// 5× the bytes bound: the count product (a library int8 GEMM alone takes
-// 2.4 ms), the ~17 GB of incidence the 128×128 tiles read from L2, the
-// per-pair epilogue and the output traffic, overlapped only across the two
-// blocks an SM, share that time in proportions not yet measured.
+// 5× the bytes bound. Variants of it timed apart on that card split the
+// time: the count product alone ~3.5 ms (a library int8 GEMM alone takes
+// 2.4 ms), the per-pair epilogue ~0.75 ms more, the output traffic ~0.9 ms
+// not overlapped, and ~1.4 ms for the runtime paths this generic kernel
+// keeps in its loop (the 4- or 16-byte copy chosen per launch, the check
+// for a block's ragged end); B1 (copyscore_fused.cu) has a variant
+// without them.
 //
-// B2, copyscore_err_kernel: the CUDA-core design, unchanged. Grid
-// (ceil(S_j/64), ceil(S_i/64)); a block owns 64×64 pairs with 256 threads,
-// each holding a 4×4 piece of every channel in registers plus 16 int32
-// counts from __dp4a over K-slices of 64 entries staged through shared
-// memory as 32-bit words (row pitch 20 words, conflict-free 16-byte reads;
-// the staging and the dp4a loop are B1's, copyscore_fused.cu). Its dp4a
-// rate bounds it; at the legacy scan's 256×256 tiles it runs 16 blocks on
-// 132 SMs.
+// B2, copyscore_tc_kernel<true, true>: B3's kernel, tile, ring and raster
+// with the error channel, err += δ_b·count, in the same per-block epilogue
+// (the ERR template parameter). Three 128×136 float32 channels beside the
+// ring would need 270 KB of shared memory, so C→ and err are summed in
+// 136 KB of it and n, an integer, in int32 registers (64 a thread beside
+// the 64 counts), one block an SM. At the legacy per-tile scan's 256×256
+// tile a 128×128 grid is only 4 blocks for 132 SMs, so the entry blocks
+// are split into contiguous ranges, one grid row of tiles each
+// (ops.py's _err_splits chooses the count so that the blocks reach the SMs;
+// range k is [k·n_blocks / splits, (k + 1)·n_blocks / splits)). With one
+// range the block writes, or adds to, the outputs itself; with more, each
+// range writes its partial sums to a workspace that the wrapper allocates,
+// and a second, fixed-order pass (copyscore_err_reduce_kernel) sums the
+// ranges in range order and writes, or adds to, the outputs. No atomics:
+// two launches give the same bits. Counts stay exact; C→ and err are summed
+// range by range, an association other than the plain version's block
+// order, within its float32 round-off (ROADMAP C4). The legacy scan's launch
+// (65 entry blocks of 248, E = 16120) is bound by its 9 MB of bytes (2.7 µs)
+// and takes a few launch latencies: the tiles, then the reduction.
 //
 // Numerics. Every floating-point step is an explicit IEEE-rounded intrinsic
 // and logf is the accurate one (no --use_fast_math): nothing is contracted
-// into an FMA. pr_independent and pair_score are B1's functions, copied
-// unchanged (a1·a2 first), and B3 sums from zero in block order, so on one
-// entry block B3's C→ equals, bit for bit, the grid that B1's C→ and C←
-// stacks scatter into: the counts are exact whichever unit computes them.
+// into an FMA. pr_independent and pair_score are the shared functions of
+// copyscore_eq6.cuh, which B1 (copyscore_fused.cu) calls too (a1·a2 first),
+// and B3 sums from zero in block order, so on one entry block B3's C→
+// equals, bit for bit, the grid that B1's C→ and C← stacks scatter into:
+// the counts are exact whichever unit computes them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "copyscore_eq6.cuh"
 #include "copyscore_mma.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // B2: block edge (pairs)
-constexpr int KW = 16;        // B2: K-slice in 32-bit words (64 int8 entries)
-constexpr int PITCH = KW + 4; // B2: shared-memory row pitch in words
 constexpr int THREADS = 256;
 
-// Eq. (3), associated so that it is bitwise symmetric in a1 and a2.
-__device__ __forceinline__ float pr_independent(float p, float a1, float a2,
-                                                float n_false) {
-  const float t1 = __fmul_rn(p, __fmul_rn(a1, a2));
-  const float t2 = __fdiv_rn(
-      __fmul_rn(__fsub_rn(1.0f, p),
-                __fmul_rn(__fsub_rn(1.0f, a1), __fsub_rn(1.0f, a2))),
-      n_false);
-  return __fadd_rn(t1, t2);
-}
-
-// Eq. (6): the same-value score with `a_src` the copied source's accuracy.
-__device__ __forceinline__ float pair_score(float p, float a_src, float pr_ind,
-                                            float s, float one_m_s) {
-  const float pr_src = __fadd_rn(__fmul_rn(p, a_src),
-                                 __fmul_rn(__fsub_rn(1.0f, p),
-                                           __fsub_rn(1.0f, a_src)));
-  return logf(__fadd_rn(one_m_s, __fdiv_rn(__fmul_rn(s, pr_src), pr_ind)));
-}
-
-__global__ void __launch_bounds__(THREADS)
-copyscore_err_kernel(const int8_t* __restrict__ v_rows,
-                     const int8_t* __restrict__ v_cols,
-                     const float* __restrict__ acc_rows,
-                     const float* __restrict__ acc_cols,
-                     const float* __restrict__ p_blk,
-                     const float* __restrict__ delta_blk,
-                     float* __restrict__ c_fwd, float* __restrict__ cnt,
-                     float* __restrict__ err, int s_i, int s_j, int n_blocks,
-                     int block_e, int accumulate, float s, float one_m_s,
-                     float n_false) {
-  __shared__ __align__(16) int32_t As[BM][PITCH];
-  __shared__ __align__(16) int32_t Bs[BM][PITCH];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int i0 = blockIdx.y * BM;   // rows this block owns
-  const int j0 = blockIdx.x * BM;   // columns this block owns
-  const long long row_bytes = (long long)n_blocks * block_e;
-  const int words = block_e >> 2;
-
-  float ai[4], aj[4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int i = i0 + ty + 16 * m;
-    ai[m] = i < s_i ? acc_rows[i] : 0.5f;
-  }
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    const int j = j0 + tx + 16 * n;
-    aj[n] = j < s_j ? acc_cols[j] : 0.5f;
-  }
-
-  float rf[4][4], rn[4][4], re[4][4];
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n) rf[m][n] = rn[m][n] = re[m][n] = 0.0f;
-
-  for (int b = 0; b < n_blocks; ++b) {
-    const long long off = (long long)b * block_e;
-    int32_t count[4][4];
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) count[m][n] = 0;
-
-    for (int k0 = 0; k0 < words; k0 += KW) {
-#pragma unroll
-      for (int q = 0; q < (BM * KW) / THREADS; ++q) {
-        const int idx = tid + THREADS * q;
-        const int row = idx / KW;
-        const int kw = idx % KW;
-        const int k = k0 + kw;
-        int32_t va = 0, vb = 0;
-        if (k < words) {
-          if (i0 + row < s_i)
-            va = reinterpret_cast<const int32_t*>(
-                v_rows + (long long)(i0 + row) * row_bytes + off)[k];
-          if (j0 + row < s_j)
-            vb = reinterpret_cast<const int32_t*>(
-                v_cols + (long long)(j0 + row) * row_bytes + off)[k];
-        }
-        As[row][kw] = va;
-        Bs[row][kw] = vb;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < KW; kk += 4) {
-        int4 a[4], bv[4];
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-          a[m] = *reinterpret_cast<const int4*>(&As[ty + 16 * m][kk]);
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-          bv[n] = *reinterpret_cast<const int4*>(&Bs[tx + 16 * n][kk]);
-#pragma unroll
-        for (int m = 0; m < 4; ++m)
-#pragma unroll
-          for (int n = 0; n < 4; ++n) {
-            int32_t c = count[m][n];
-            c = __dp4a(a[m].x, bv[n].x, c);
-            c = __dp4a(a[m].y, bv[n].y, c);
-            c = __dp4a(a[m].z, bv[n].z, c);
-            c = __dp4a(a[m].w, bv[n].w, c);
-            count[m][n] = c;
-          }
-      }
-      __syncthreads();
-    }
-
-    const float p = p_blk[b];
-    const float d = delta_blk[b];
-#pragma unroll
-    for (int m = 0; m < 4; ++m)
-#pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const float c = (float)count[m][n];
-        const float pr = pr_independent(p, ai[m], aj[n], n_false);
-        const float f = pair_score(p, aj[n], pr, s, one_m_s);
-        rf[m][n] = __fadd_rn(rf[m][n], __fmul_rn(f, c));
-        rn[m][n] = __fadd_rn(rn[m][n], c);
-        re[m][n] = __fadd_rn(re[m][n], __fmul_rn(d, c));
-      }
-  }
-
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const int i = i0 + ty + 16 * m;
-    if (i >= s_i) continue;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int j = j0 + tx + 16 * n;
-      if (j >= s_j) continue;
-      const long long o = (long long)i * s_j + j;
-      if (accumulate) {
-        c_fwd[o] = __fadd_rn(c_fwd[o], rf[m][n]);
-        cnt[o] = __fadd_rn(cnt[o], rn[m][n]);
-        err[o] = __fadd_rn(err[o], re[m][n]);
-      } else {
-        c_fwd[o] = rf[m][n];
-        cnt[o] = rn[m][n];
-        err[o] = re[m][n];
-      }
-    }
-  }
-}
+using copyscore_eq6::pair_score;
+using copyscore_eq6::pr_independent;
 
 // ---- B3 on the int8 tensor cores ------------------------------------------
 
@@ -260,35 +129,47 @@ constexpr int GROUP = 16;      // tile rows a raster group
 
 // SUMS: more than one entry block, the sums carried in their own shared
 // memory after the ring; else one channel staged at a time in the ring's.
+// ERR (B2, always with SUMS): the second sum is err (δ_b·count) in place of
+// n, n is carried as int32 in registers, and the grid holds n_splits ranges
+// of entry blocks, one grid row of tiles each.
 template <bool SUMS>
 constexpr int smem_bytes() {
   return SUMS ? RING + 2 * CHANNEL : (RING > CHANNEL ? RING : CHANNEL);
 }
 
-template <bool SUMS>
+template <bool SUMS, bool ERR>
 __global__ void __launch_bounds__(THREADS, SUMS ? 1 : 2)
 copyscore_tc_kernel(const int8_t* __restrict__ v_rows,
                     const int8_t* __restrict__ v_cols,
                     const float* __restrict__ acc_rows,
                     const float* __restrict__ acc_cols,
                     const float* __restrict__ p_blk,
+                    const float* __restrict__ delta_blk,
                     float* __restrict__ c_fwd, float* __restrict__ cnt,
-                    int s_i, int s_j, int n_blocks, int block_e,
+                    float* __restrict__ err, float* __restrict__ work,
+                    int s_i, int s_j, int n_blocks, int block_e, int n_splits,
                     int accumulate, int vec16, int vec_out, float s,
                     float one_m_s, float n_false) {
+  static_assert(SUMS || !ERR, "B2 carries its sums beside the ring");
   extern __shared__ float4 smem_f4[];
   int8_t* ring = reinterpret_cast<int8_t*>(smem_f4);
   float* sums = reinterpret_cast<float*>(ring + (SUMS ? RING : 0));
 
-  // this block's tile, in raster groups of GROUP tile rows
+  // this block's range of entry blocks (B2: its grid row's; B3: all of
+  // them), and its tile, in raster groups of GROUP tile rows
   const int n_tm = (s_i + TM - 1) / TM;
   const int n_tn = (s_j + TN - 1) / TN;
+  const int split = ERR ? (int)blockIdx.x / (n_tm * n_tn) : 0;
+  const int tix = (int)blockIdx.x - split * n_tm * n_tn;
   const int per_group = GROUP * n_tn;
-  const int first = (int)blockIdx.x / per_group * GROUP;
+  const int first = tix / per_group * GROUP;
   const int rows_here = min(n_tm - first, GROUP);
-  const int in_group = (int)blockIdx.x % per_group;
+  const int in_group = tix % per_group;
   const int i0 = (first + in_group % rows_here) * TM;
   const int j0 = (in_group / rows_here) * TN;
+  const int b_lo = ERR ? (int)((long long)split * n_blocks / n_splits) : 0;
+  const int b_hi =
+      ERR ? (int)((long long)(split + 1) * n_blocks / n_splits) : n_blocks;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -298,11 +179,11 @@ copyscore_tc_kernel(const int8_t* __restrict__ v_rows,
   const int wn = (warp & 3) * WN;               // ... and columns
   const long long row_bytes = (long long)n_blocks * block_e;
   const int spb = (block_e + KS - 1) / KS;      // K-slices an entry block
-  const int total = n_blocks * spb;
+  const int total = (b_hi - b_lo) * spb;
 
   auto load = [&](int it) {
     const int sl = it % spb;
-    const long long k0 = (long long)(it / spb) * block_e + sl * KS;
+    const long long k0 = (long long)(b_lo + it / spb) * block_e + sl * KS;
     const int n_valid = min(KS, block_e - sl * KS);
     int8_t* As = ring + (it % STAGES) * STAGE;
     cm::cp_slice<TM, KS, THREADS>(As, v_rows, i0, s_i, row_bytes, k0, n_valid,
@@ -318,13 +199,24 @@ copyscore_tc_kernel(const int8_t* __restrict__ v_rows,
   }
 
   int32_t count[MT][NT][4];
+  int32_t n_sum[MT][NT][4];                     // B2's n, exact
+  if (ERR) {
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < NT; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) n_sum[mi][ni][e] = 0;
+  }
 
   // The Eq. 6 epilogue of entry block b from this thread's counts: C→ (f·c)
-  // into Sc and n (c) into Sn, each added to what the slot holds with
+  // into Sc and the second channel into Sx, n (c) for B3 and err (δ_b·c)
+  // for B2, whose n goes to n_sum; each added to what the slot holds with
   // `add`, else to 0; a null channel is skipped. Slots are this thread's
   // own: rows wm + 16·mi + g (+ 8), columns wn + 8·ni + 2t (+ 1).
-  auto put = [&](int b, float* Sc, float* Sn, bool add) {
+  auto put = [&](int b, float* Sc, float* Sx, bool add) {
     const float p = p_blk[b];
+    const float d = ERR ? delta_blk[b] : 0.0f;
     float aj[NT][2];
 #pragma unroll
     for (int ni = 0; ni < NT; ++ni)
@@ -345,6 +237,10 @@ copyscore_tc_kernel(const int8_t* __restrict__ v_rows,
           const int o = r * SP + c;
           const float c0 = (float)count[mi][ni][2 * h];
           const float c1 = (float)count[mi][ni][2 * h + 1];
+          if (ERR) {
+            n_sum[mi][ni][2 * h] += count[mi][ni][2 * h];
+            n_sum[mi][ni][2 * h + 1] += count[mi][ni][2 * h + 1];
+          }
           if (Sc != nullptr) {
             float f[2];
 #pragma unroll
@@ -358,11 +254,13 @@ copyscore_tc_kernel(const int8_t* __restrict__ v_rows,
                 make_float2(__fadd_rn(was.x, __fmul_rn(f[0], c0)),
                             __fadd_rn(was.y, __fmul_rn(f[1], c1)));
           }
-          if (Sn != nullptr) {
-            const float2 was = add ? *reinterpret_cast<const float2*>(Sn + o)
+          if (Sx != nullptr) {
+            const float x0 = ERR ? __fmul_rn(d, c0) : c0;
+            const float x1 = ERR ? __fmul_rn(d, c1) : c1;
+            const float2 was = add ? *reinterpret_cast<const float2*>(Sx + o)
                                    : make_float2(0.f, 0.f);
-            *reinterpret_cast<float2*>(Sn + o) =
-                make_float2(__fadd_rn(was.x, c0), __fadd_rn(was.y, c1));
+            *reinterpret_cast<float2*>(Sx + o) =
+                make_float2(__fadd_rn(was.x, x0), __fadd_rn(was.y, x1));
           }
         }
       }
@@ -383,104 +281,129 @@ copyscore_tc_kernel(const int8_t* __restrict__ v_rows,
           for (int e = 0; e < 4; ++e) count[mi][ni][e] = 0;
     }
     const int8_t* As = ring + (it % STAGES) * STAGE;
-    const int8_t* Bs = As + TM * PB;
-#pragma unroll
-    for (int kk = 0; kk < KS / 32; ++kk) {
-      if (sl * KS + kk * 32 >= block_e) break;  // past the block: all zero
-      uint32_t bf[NT / 2][4];
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np)
-        cm::ldsm_x4(bf[np], Bs + (wn + 16 * np + (lane & 7) + ((lane >> 4) << 3)) * PB +
-                                kk * 32 + ((lane >> 3) & 1) * 16);
-#pragma unroll
-      for (int mi = 0; mi < MT; ++mi) {
-        uint32_t af[4];
-        cm::ldsm_x4(af, As + (wm + 16 * mi + (lane & 15)) * PB + kk * 32 +
-                            (lane >> 4) * 16);
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          cm::mma(count[mi][2 * np], af, bf[np][0], bf[np][1]);
-          cm::mma(count[mi][2 * np + 1], af, bf[np][2], bf[np][3]);
-        }
-      }
-    }
-    if (SUMS && sl == spb - 1) put(it / spb, sums, sums + TM * SP, it >= spb);
+    cm::count_slice<MT, NT, KS>(count, As, As + TM * PB, wm, wn,
+                                block_e - sl * KS);
+    if (SUMS && sl == spb - 1)
+      put(b_lo + it / spb, sums, sums + TM * SP, it >= spb);
   }
   fm::cp_async_wait<0>();
 
   // out: one staged channel, into rows i0.., columns j0.. of `out`, in
   // coalesced 16-byte read-modify-writes (4-byte ones unless vec_out)
-  auto write_out = [&](const float* St, float* out) {
-    for (int idx = threadIdx.x; idx < TM * TN / 4; idx += THREADS) {
-      const int r = idx / (TN / 4);
-      const int c = (idx % (TN / 4)) * 4;
-      const int i = i0 + r;
-      const int j = j0 + c;
-      if (i >= s_i || j >= s_j) continue;
-      const float4 x = *reinterpret_cast<const float4*>(St + r * SP + c);
-      float* o = out + (long long)i * s_j + j;
-      if (vec_out) {
-        float4 y = x;
-        if (accumulate) {
-          const float4 a = *reinterpret_cast<const float4*>(o);
-          y = make_float4(__fadd_rn(a.x, x.x), __fadd_rn(a.y, x.y),
-                          __fadd_rn(a.z, x.z), __fadd_rn(a.w, x.w));
-        }
-        *reinterpret_cast<float4*>(o) = y;
-      } else {
-        const float xs[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (j + e < s_j) o[e] = accumulate ? __fadd_rn(o[e], xs[e]) : xs[e];
-      }
-    }
+  const long long at = (long long)i0 * s_j + j0;
+  auto write_out = [&](const float* St, float* out, bool add) {
+    cm::store_tile<TM, TN, SP, THREADS>(St, out + at, s_j, s_i - i0, s_j - j0,
+                                        add, vec_out);
   };
 
-  if (SUMS) {
+  if (ERR) {
+    // the outputs themselves with one range, else this range's slice of the
+    // workspace, (n_splits, 3, S_i, S_j): C→, n, err
+    const long long plane = (long long)s_i * s_j;
+    float* oc = c_fwd;
+    float* on = cnt;
+    float* oe = err;
+    bool add = accumulate != 0;
+    if (n_splits > 1) {
+      oc = work + (long long)split * 3 * plane;
+      on = oc + plane;
+      oe = oc + 2 * plane;
+      add = false;
+    }
     __syncthreads();                            // every thread's sums are in
-    write_out(sums, c_fwd);
-    write_out(sums + TM * SP, cnt);
+    write_out(sums, oc, add);
+    write_out(sums + TM * SP, oe, add);
+    __syncthreads();                            // C→ has left its staging
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int ni = 0; ni < NT; ++ni)
+          *reinterpret_cast<float2*>(sums + (wm + 16 * mi + g + 8 * h) * SP +
+                                     wn + 8 * ni + 2 * t) =
+              make_float2((float)n_sum[mi][ni][2 * h],
+                          (float)n_sum[mi][ni][2 * h + 1]);
+    __syncthreads();
+    write_out(sums, on, add);
+  } else if (SUMS) {
+    __syncthreads();                            // every thread's sums are in
+    write_out(sums, c_fwd, accumulate);
+    write_out(sums + TM * SP, cnt, accumulate);
   } else {
     float* St = reinterpret_cast<float*>(ring);
     __syncthreads();                            // every warp is done with the ring
     put(0, St, nullptr, false);
     __syncthreads();
-    write_out(St, c_fwd);
+    write_out(St, c_fwd, accumulate);
     __syncthreads();
     put(0, nullptr, St, false);
     __syncthreads();
-    write_out(St, cnt);
+    write_out(St, cnt, accumulate);
   }
 }
 
-template <bool SUMS>
+// The second pass of a split B2 launch: for every output element, the
+// ranges' partial sums in range order, from zero, then written to the output
+// or, with `accumulate`, added to it once. One thread an element.
+__global__ void __launch_bounds__(THREADS)
+copyscore_err_reduce_kernel(const float* __restrict__ work,
+                            float* __restrict__ c_fwd, float* __restrict__ cnt,
+                            float* __restrict__ err, long long plane,
+                            int n_splits, int accumulate) {
+  const long long n = 3 * plane;
+  const long long x = (long long)blockIdx.x * THREADS + threadIdx.x;
+  if (x >= n) return;
+  float sum = 0.0f;
+  for (int k = 0; k < n_splits; ++k)
+    sum = __fadd_rn(sum, work[(long long)k * n + x]);
+  const int ch = (int)(x / plane);
+  float* out = (ch == 0 ? c_fwd : ch == 1 ? cnt : err) + (x - ch * plane);
+  *out = accumulate ? __fadd_rn(*out, sum) : sum;
+}
+
+template <bool SUMS, bool ERR>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(copyscore_tc_kernel<SUMS>,
+  return cudaFuncSetAttribute(copyscore_tc_kernel<SUMS, ERR>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               smem_bytes<SUMS>());
 }
 
-template <bool SUMS>
+template <bool SUMS, bool ERR>
 cudaError_t launch(const int8_t* v_rows, const int8_t* v_cols,
                    const float* acc_rows, const float* acc_cols,
-                   const float* p_blk, float* c_fwd, float* cnt, int s_i,
-                   int s_j, int n_blocks, int block_e, int accumulate,
+                   const float* p_blk, const float* delta_blk, float* c_fwd,
+                   float* cnt, float* err, float* work, int s_i, int s_j,
+                   int n_blocks, int block_e, int n_splits, int accumulate,
                    float s, float one_m_s, float n_false,
                    cudaStream_t stream) {
-  const long long tiles =
-      (long long)((s_i + TM - 1) / TM) * ((s_j + TN - 1) / TN);
-  if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem<SUMS>();
-  if (err != cudaSuccess) return err;
+  if (n_splits < 1 || n_splits > n_blocks ||
+      (n_splits > 1 && (!ERR || work == nullptr)))
+    return cudaErrorInvalidValue;
+  const long long blocks =
+      (long long)((s_i + TM - 1) / TM) * ((s_j + TN - 1) / TN) * n_splits;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem<SUMS, ERR>();
+  if (e != cudaSuccess) return e;
   const bool vec16 = block_e % 16 == 0 && (uintptr_t)v_rows % 16 == 0 &&
                      (uintptr_t)v_cols % 16 == 0;
-  const bool vec_out = s_j % 4 == 0 && (uintptr_t)c_fwd % 16 == 0 &&
-                       (uintptr_t)cnt % 16 == 0;
-  copyscore_tc_kernel<SUMS><<<(unsigned)tiles, THREADS, smem_bytes<SUMS>(),
-                              stream>>>(
-      v_rows, v_cols, acc_rows, acc_cols, p_blk, c_fwd, cnt, s_i, s_j,
-      n_blocks, block_e, accumulate, (int)vec16, (int)vec_out, s, one_m_s,
-      n_false);
+  bool vec_out = s_j % 4 == 0;
+  if (n_splits > 1)
+    vec_out = vec_out && (uintptr_t)work % 16 == 0;
+  else
+    vec_out = vec_out && (uintptr_t)c_fwd % 16 == 0 &&
+              (uintptr_t)cnt % 16 == 0 && (uintptr_t)err % 16 == 0;
+  copyscore_tc_kernel<SUMS, ERR><<<(unsigned)blocks, THREADS,
+                                   smem_bytes<SUMS>(), stream>>>(
+      v_rows, v_cols, acc_rows, acc_cols, p_blk, delta_blk, c_fwd, cnt, err,
+      work, s_i, s_j, n_blocks, block_e, n_splits, accumulate, (int)vec16,
+      (int)vec_out, s, one_m_s, n_false);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || n_splits == 1) return e;
+  const long long plane = (long long)s_i * s_j;
+  copyscore_err_reduce_kernel<<<(unsigned)((3 * plane + THREADS - 1) / THREADS),
+                                THREADS, 0, stream>>>(
+      work, c_fwd, cnt, err, plane, n_splits, accumulate);
   return cudaGetLastError();
 }
 
@@ -496,51 +419,66 @@ extern "C" {
 // int8, row-major, block_e % 4 == 0, both starting on a 4-byte boundary;
 // acc_rows (S_i,), acc_cols (S_j,), p_blk (n_blocks,), and delta_blk
 // (n_blocks,) when err is not null, float32; c_fwd, cnt and err (S_i, S_j)
-// float32, row-major. err == null selects B3 (copyscore_tc_kernel), else
-// B2 (copyscore_err_kernel). accumulate != 0 adds the block's sums to the
-// outputs instead of writing them. one_m_s is 1 − s rounded to float from
-// double, as the host-side expression gives it.
+// float32, row-major. err == null selects B3 (copyscore_tc_kernel<·,
+// false>), else B2 (copyscore_tc_kernel<true, true>) over n_splits ranges
+// of entry blocks
+// (1 ≤ n_splits ≤ n_blocks; with n_splits > 1, `work` holds (n_splits, 3,
+// S_i, S_j) float32 of scratch and a second kernel sums the ranges; B3
+// ignores both). accumulate != 0 adds the block's sums to the outputs
+// instead of writing them. one_m_s is 1 − s rounded to float from double,
+// as the host-side expression gives it.
 int copyscore_launch(const void* v_rows, const void* v_cols,
                      const void* acc_rows, const void* acc_cols,
                      const void* p_blk, const void* delta_blk, void* c_fwd,
-                     void* cnt, void* err, int s_i, int s_j, int n_blocks,
-                     int block_e, int accumulate, float s, float one_m_s,
-                     float n_false, void* stream) {
+                     void* cnt, void* err, void* work, int s_i, int s_j,
+                     int n_blocks, int block_e, int n_splits, int accumulate,
+                     float s, float one_m_s, float n_false, void* stream) {
   if (s_i <= 0 || s_j <= 0) return (int)cudaSuccess;
   cudaStream_t st = (cudaStream_t)stream;
-  if (err != nullptr) {
-    dim3 grid((unsigned)((s_j + BM - 1) / BM), (unsigned)((s_i + BM - 1) / BM));
-    copyscore_err_kernel<<<grid, THREADS, 0, st>>>(
-        (const int8_t*)v_rows, (const int8_t*)v_cols, (const float*)acc_rows,
-        (const float*)acc_cols, (const float*)p_blk, (const float*)delta_blk,
-        (float*)c_fwd, (float*)cnt, (float*)err, s_i, s_j, n_blocks, block_e,
-        accumulate, s, one_m_s, n_false);
-    return (int)cudaGetLastError();
-  }
   const int8_t* vr = (const int8_t*)v_rows;
   const int8_t* vc = (const int8_t*)v_cols;
   const float* ar = (const float*)acc_rows;
   const float* ac = (const float*)acc_cols;
   const float* pb = (const float*)p_blk;
+  float* cf = (float*)c_fwd;
+  float* cn = (float*)cnt;
+  if (err != nullptr)
+    return (int)tc::launch<true, true>(vr, vc, ar, ac, pb,
+                                       (const float*)delta_blk, cf, cn,
+                                       (float*)err, (float*)work, s_i, s_j,
+                                       n_blocks, block_e, n_splits, accumulate,
+                                       s, one_m_s, n_false, st);
   if (n_blocks > 1)
-    return (int)tc::launch<true>(vr, vc, ar, ac, pb, (float*)c_fwd,
-                                 (float*)cnt, s_i, s_j, n_blocks, block_e,
-                                 accumulate, s, one_m_s, n_false, st);
-  return (int)tc::launch<false>(vr, vc, ar, ac, pb, (float*)c_fwd,
-                                (float*)cnt, s_i, s_j, n_blocks, block_e,
-                                accumulate, s, one_m_s, n_false, st);
+    return (int)tc::launch<true, false>(vr, vc, ar, ac, pb, nullptr, cf, cn,
+                                        nullptr, nullptr, s_i, s_j, n_blocks,
+                                        block_e, 1, accumulate, s, one_m_s,
+                                        n_false, st);
+  return (int)tc::launch<false, false>(vr, vc, ar, ac, pb, nullptr, cf, cn,
+                                       nullptr, nullptr, s_i, s_j, n_blocks,
+                                       block_e, 1, accumulate, s, one_m_s,
+                                       n_false, st);
 }
 
 // B3's dynamic shared memory and resident blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor) with one entry block a
 // launch, as the store path launches it.
 int copyscore_info(int* smem_bytes, int* blocks_per_sm) {
-  cudaError_t err = tc::allow_smem<false>();
+  cudaError_t err = tc::allow_smem<false, false>();
   if (err != cudaSuccess) return (int)err;
   *smem_bytes = tc::smem_bytes<false>();
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, tc::copyscore_tc_kernel<false>, THREADS,
+      blocks_per_sm, tc::copyscore_tc_kernel<false, false>, THREADS,
       tc::smem_bytes<false>());
+}
+
+// The same for B2 (copyscore_tc_kernel<true, true>).
+int copyscore_err_info(int* smem_bytes, int* blocks_per_sm) {
+  cudaError_t err = tc::allow_smem<true, true>();
+  if (err != cudaSuccess) return (int)err;
+  *smem_bytes = tc::smem_bytes<true>();
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, tc::copyscore_tc_kernel<true, true>, THREADS,
+      tc::smem_bytes<true>());
 }
 
 const char* copyscore_single_error_string(int code) {

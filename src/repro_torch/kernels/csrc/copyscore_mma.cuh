@@ -1,9 +1,11 @@
-// Int8 tensor-core building blocks for the copyscore kernels (copyscore.cu),
-// for Hopper (sm_90a): the s8·s8 → s32 m16n8k32 product (mma.sync), its
-// fragments loaded from shared memory with ldmatrix, and the staging of
-// K-slices of int8 incidence rows into shared memory by cp.async
-// (flash_mma.cuh's copies), 16 bytes a copy where rows and entry blocks sit
-// on 16-byte boundaries and 4 bytes a copy otherwise.
+// Int8 tensor-core building blocks for the copyscore kernels (copyscore.cu,
+// copyscore_fused.cu), for Hopper (sm_90a): the s8·s8 → s32 m16n8k32
+// product (mma.sync), its fragments loaded from shared memory with
+// ldmatrix, the staging of K-slices of int8 incidence rows into shared
+// memory by cp.async (flash_mma.cuh's copies), 16 bytes a copy where rows
+// and entry blocks sit on 16-byte boundaries and 4 bytes a copy otherwise,
+// one K-slice of a warp's count tile, and the store of a staged float32
+// tile into a row-major output.
 //
 // The count product. count = A·Bᵀ with A = V_rows (rows × entries) and B =
 // V_cols (columns × entries), both row-major with the entries contiguous:
@@ -97,6 +99,74 @@ __device__ __forceinline__ void cp_slice(int8_t* dst, const int8_t* src,
       flash_mma::cp_async4(
           dst + r * PB + c,
           src + (ok ? (long long)(row0 + r) * row_bytes + k0 + c : 0), ok);
+    }
+  }
+}
+
+// One K-slice of a warp's count tile: count += A·Bᵀ over the KS entries
+// that cp_slice staged (row pitch KS + 16), A's rows wm .. wm + 16·MT − 1 at
+// As and B's rows (the pair tile's columns) wn .. wn + 8·NT − 1 at Bs, 32
+// entries an MMA; the 32-entry steps at or past n_k (the entry block's end)
+// hold only zero-fill and are skipped. NT is even: B's fragments come 16
+// columns an ldmatrix.
+template <int MT, int NT, int KS>
+__device__ __forceinline__ void count_slice(int32_t (&count)[MT][NT][4],
+                                            const int8_t* As,
+                                            const int8_t* Bs, int wm, int wn,
+                                            int n_k) {
+  constexpr int PB = KS + 16;
+  const int lane = (int)threadIdx.x & 31;
+#pragma unroll
+  for (int kk = 0; kk < KS / 32; ++kk) {
+    if (kk * 32 >= n_k) break;
+    uint32_t bf[NT / 2][4];
+#pragma unroll
+    for (int np = 0; np < NT / 2; ++np)
+      ldsm_x4(bf[np], Bs + (wn + 16 * np + (lane & 7) + ((lane >> 4) << 3)) * PB +
+                          kk * 32 + ((lane >> 3) & 1) * 16);
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi) {
+      uint32_t af[4];
+      ldsm_x4(af, As + (wm + 16 * mi + (lane & 15)) * PB + kk * 32 +
+                      (lane >> 4) * 16);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        mma(count[mi][2 * np], af, bf[np][0], bf[np][1]);
+        mma(count[mi][2 * np + 1], af, bf[np][2], bf[np][3]);
+      }
+    }
+  }
+}
+
+// A staged R×C float32 tile (row pitch SP floats, rows 16-byte aligned) into
+// rows 0 .. R − 1 and columns 0 .. C − 1 of `out` (row pitch ld floats), by
+// the block's NTH threads, in coalesced accesses: out += x with `add`
+// (float32, rounded once), else out = x. Rows at or past n_rows and columns
+// at or past n_cols are not touched. vec: 16-byte accesses (out 16-byte
+// aligned, ld and n_cols multiples of 4); else 4-byte ones.
+template <int R, int C, int SP, int NTH>
+__device__ __forceinline__ void store_tile(const float* St, float* out,
+                                           long long ld, int n_rows,
+                                           int n_cols, bool add, bool vec) {
+  for (int idx = (int)threadIdx.x; idx < R * C / 4; idx += NTH) {
+    const int r = idx / (C / 4);
+    const int c = (idx % (C / 4)) * 4;
+    if (r >= n_rows || c >= n_cols) continue;
+    const float4 x = *reinterpret_cast<const float4*>(St + r * SP + c);
+    float* o = out + r * ld + c;
+    if (vec) {
+      float4 y = x;
+      if (add) {
+        const float4 a = *reinterpret_cast<const float4*>(o);
+        y = make_float4(__fadd_rn(a.x, x.x), __fadd_rn(a.y, x.y),
+                        __fadd_rn(a.z, x.z), __fadd_rn(a.w, x.w));
+      }
+      *reinterpret_cast<float4*>(o) = y;
+    } else {
+      const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < n_cols) o[e] = add ? __fadd_rn(o[e], xs[e]) : xs[e];
     }
   }
 }

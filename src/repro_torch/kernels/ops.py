@@ -18,10 +18,10 @@
 ``copyscore_store``      — the full square streamed from a chunked
                            ``CorpusStore``, one launch per live chunk,
                            accumulated on the device. All three reach
-                           ``csrc/copyscore.cu`` on a CUDA tensor (B3 on
-                           the int8 tensor cores; B2, the error channel,
-                           on the CUDA cores), and ``ref.copyscore_torch``
-                           on a CPU tensor.
+                           ``csrc/copyscore.cu`` on a CUDA tensor (B3, and
+                           B2 with the error channel, on the int8 tensor
+                           cores), and ``ref.copyscore_torch`` on a CPU
+                           tensor.
 ``pad_for_copyscore``    — host-side padding of buckets and rows to kernel
                            block multiples.
 
@@ -53,6 +53,7 @@ process (plain integers; a caller resets one to 0 to count a run).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -190,9 +191,11 @@ def copyscore_tile_fused(v_rows, v_cols, p_blk, acc_rows, acc_cols, *,
 # single-direction copyscore: the full square, one pair tile, a chunked store
 # ---------------------------------------------------------------------------
 
-#: B2's grid holds at most 65535 row blocks of 64 (B3's 1-D grid of 128×128
-#: tiles holds far more)
-_MAX_ROWS = 65535 * 64
+#: the C interface takes row counts as int
+_MAX_ROWS = 2 ** 31 - 1
+
+#: B2's tile edge (``copyscore_tc_kernel<true, true>``'s 128×128 pair tiles)
+_ERR_TILE = 128
 
 
 def _single_lib() -> ctypes.CDLL:
@@ -200,7 +203,7 @@ def _single_lib() -> ctypes.CDLL:
     fn = lib.copyscore_launch
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
                        + [ctypes.c_float] * 3 + [ctypes.c_void_p])
         lib.copyscore_single_error_string.restype = ctypes.c_char_p
         lib.copyscore_single_error_string.argtypes = [ctypes.c_int]
@@ -253,14 +256,39 @@ def _single_operands(v_rows, v_cols, acc_rows, acc_cols, p_blk, delta_blk,
     return small
 
 
+def _err_splits(n_blocks: int, s_i: int, s_j: int, sms: int) -> int:
+    """The number m of contiguous ranges into which B2 splits its
+    ``n_blocks`` entry blocks, one grid row of 128×128 pair tiles each: as
+    few as bring the blocks to ``sms`` (one block an SM), at most one per
+    entry block. The kernel takes range k as [k·n_blocks // m, (k + 1)·
+    n_blocks // m), so with m ≤ n_blocks none is empty."""
+    tiles = -(-s_i // _ERR_TILE) * -(-s_j // _ERR_TILE)
+    return max(1, min(n_blocks, -(-sms // tiles)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _launch_single(v_rows, v_cols, small, outs, *, block_e: int,
                    accumulate: bool, s: float, n_false: float) -> None:
     """Launch ``csrc/copyscore.cu`` over one pair block on the current
-    stream of its device: ``outs`` = (C→, n) selects B3, (C→, n, err) B2;
-    written, or added to with ``accumulate``. Raises on a CUDA error."""
+    stream of its device: ``outs`` = (C→, n) selects B3, (C→, n, err) B2,
+    whose entry blocks are split by ``_err_splits`` across a workspace
+    allocated here; written, or added to with ``accumulate``. Raises on a
+    CUDA error."""
     acc_rows, acc_cols, p_blk, delta_blk = small
     lib = _single_lib()
     dev = v_rows.device
+    S_i, S_j, n_e = v_rows.shape[0], v_cols.shape[0], v_rows.shape[1] // block_e
+    n_splits, work = 1, None
+    if len(outs) == 3:
+        n_splits = _err_splits(n_e, S_i, S_j, _sm_count(dev.index))
+        if n_splits > 1:
+            work = torch.empty((n_splits, 3, S_i, S_j), dtype=torch.float32,
+                               device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.copyscore_launch(
@@ -269,9 +297,9 @@ def _launch_single(v_rows, v_cols, small, outs, *, block_e: int,
             None if delta_blk is None else delta_blk.data_ptr(),
             outs[0].data_ptr(), outs[1].data_ptr(),
             outs[2].data_ptr() if len(outs) == 3 else None,
-            v_rows.shape[0], v_cols.shape[0], v_rows.shape[1] // block_e,
-            block_e, int(accumulate), float(s), float(1.0 - s), float(n_false),
-            stream)
+            None if work is None else work.data_ptr(),
+            S_i, S_j, n_e, block_e, n_splits, int(accumulate), float(s),
+            float(1.0 - s), float(n_false), stream)
     if code != 0:
         raise RuntimeError(f"copyscore launch failed: "
                            f"{lib.copyscore_single_error_string(code).decode()}")
@@ -343,8 +371,7 @@ def copyscore(v, p_blk, acc, *, s: float, n_false: float, block_i: int = 128,
     tensor launches the hand-written kernel (``csrc/copyscore.cu``, int8
     incidence, ``block_e`` a multiple of 4) or raises. ``block_i`` and
     ``block_j`` are the JAX signature's Pallas tile; the kernels mask ragged
-    edges in their own tiles (B3 128×128, B2 64×64), so they change nothing
-    here.
+    edges in their own 128×128 tiles, so they change nothing here.
     """
     out, launched = _pair_block(v, v, p_blk, acc, acc, s=s, n_false=n_false,
                                 block_e=block_e, delta_blk=None)

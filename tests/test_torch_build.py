@@ -59,7 +59,18 @@ def test_flash_sources_hash_their_shared_header():
         assert [p.name for p in _build._sources(name)] == [f"{name}.cu",
                                                           "flash_mma.cuh"]
     assert [p.name for p in _build._sources("copyscore")] == [
-        "copyscore.cu", "copyscore_mma.cuh", "flash_mma.cuh"]
+        "copyscore.cu", "copyscore_eq6.cuh", "copyscore_mma.cuh",
+        "flash_mma.cuh"]
+
+
+@pytest.mark.parametrize("name", ["copyscore", "copyscore_fused"])
+def test_copyscore_sources_hash_their_shared_headers(name):
+    """B1 (copyscore_fused) and B2/B3 (copyscore) take Eq. 3 and Eq. 6 from
+    one header and the int8 tensor-core pieces from another: both are in
+    each library's hash, so an edit to either rebuilds both."""
+    assert [p.name for p in _build._sources(name)] == [
+        f"{name}.cu", "copyscore_eq6.cuh", "copyscore_mma.cuh",
+        "flash_mma.cuh"]
 
 
 def test_a_library_found_on_disk_keeps_this_process_build_log(csrc):

@@ -201,6 +201,27 @@ def test_copyscore_rejects_bad_operands():
                            t["a_c"], block_e=8, **kw)
 
 
+@pytest.mark.parametrize("n_blocks,S_i,S_j", [
+    (65, 256, 256),        # the legacy per-tile scan's launch
+    (1, 256, 256), (3, 100, 37), (1000, 1024, 1024), (2, 16384, 16384)])
+def test_err_splits_cover_every_block_once(n_blocks, S_i, S_j):
+    """B2's split: contiguous ranges in order, none empty, covering every
+    entry block once; the blocks reach the SMs where there are entry blocks
+    enough, and no range is added past that."""
+    sms = 132
+    m = ops._err_splits(n_blocks, S_i, S_j, sms)
+    # range k as the kernel takes it
+    ranges = [(k * n_blocks // m, (k + 1) * n_blocks // m) for k in range(m)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == n_blocks
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    tiles = -(-S_i // 128) * -(-S_j // 128)
+    assert m * tiles >= sms or m == n_blocks
+    assert m == 1 or (m - 1) * tiles < sms
+    if (n_blocks, S_i, S_j) == (65, 256, 256):
+        assert m == 33 and m * tiles == sms
+
+
 # ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
@@ -344,3 +365,47 @@ def test_wide_block_at_ragged_shape_on_card(cuda_device, aligned):
     want = ref.copyscore_torch(t["v_r"], t["p"], t["a_r"], v_cols=t["v_c"],
                                acc_cols=t["a_c"], **kw)
     _assert_outputs([g.cpu() for g in got], want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_err_kernel_at_legacy_shape_on_card(cuda_device, accumulate):
+    """B2 at the legacy per-tile scan's launch: a 256 × 256 tile over 65
+    entry blocks of 248 (4-byte loads, a ragged last K-slice), split into
+    ranges across the SMs and summed by the second pass, written or added
+    onto non-zero outputs: counts exact, C→ and err within the tolerance."""
+    x = _instance(40, 256, 256, 65, 248)
+    c = {k: torch.from_numpy(v).to(cuda_device) for k, v in x.items()}
+    kw = dict(s=S_PARAM, n_false=N_FALSE)
+    rng = np.random.default_rng(6)
+    start = [torch.from_numpy(rng.normal(0, 3, (256, 256)).astype(np.float32))
+             if accumulate else torch.zeros((256, 256)) for _ in range(3)]
+    start[1] = start[1].round().abs()
+    outs = tuple(t.to(cuda_device) for t in start)
+    small = ops._single_operands(c["v_r"], c["v_c"], c["a_r"], c["a_c"],
+                                 c["p"], c["d"], 248)
+    ops._launch_single(c["v_r"], c["v_c"], small, outs, block_e=248,
+                       accumulate=accumulate, **kw)
+    torch.cuda.synchronize()
+    t = {k: torch.from_numpy(v) for k, v in x.items()}
+    want = ref.copyscore_torch(t["v_r"], t["p"], t["a_r"], v_cols=t["v_c"],
+                               acc_cols=t["a_c"], delta_blk=t["d"],
+                               block_e=248, **kw)
+    _assert_outputs([o.cpu() for o in outs],
+                    [a + b for a, b in zip(start, want)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S_r,S_c,n_e", [(256, 256, 65), (300, 200, 1)])
+def test_err_kernel_two_launches_bit_equal_on_card(cuda_device, S_r, S_c, n_e):
+    """No atomics in either pass of B2: two launches on the same inputs give
+    the same bits, split (256 × 256, 33 ranges) and not split (300 × 200,
+    one entry block)."""
+    x = _instance(41, S_r, S_c, n_e, 248)
+    c = {k: torch.from_numpy(v).to(cuda_device) for k, v in x.items()}
+    runs = [ops.copyscore_tile(c["v_r"], c["v_c"], c["p"], c["a_r"], c["a_c"],
+                               s=S_PARAM, n_false=N_FALSE, block_e=248,
+                               delta_blk=c["d"]) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

@@ -113,9 +113,12 @@ def _group(seed, T, nb, Gc, w):
 
 
 def _coords(nb, device="cpu"):
+    """Every r ≤ c tile of an nb × nb grid, row-major, with a (-1, -1) slot
+    in the middle of the list."""
     live = [[r, c] for r in range(nb) for c in range(r, nb)]
-    return torch.tensor(live[:1] + [[-1, -1]] + live[1:], dtype=torch.int32,
-                        device=device)
+    mid = len(live) // 2
+    return torch.tensor(live[:mid] + [[-1, -1]] + live[mid:],
+                        dtype=torch.int32, device=device)
 
 
 @pytest.mark.parametrize("Gc,w", [(1, 8), (3, 40)])
@@ -180,10 +183,21 @@ def cuda_device():
     return torch.device("cuda")
 
 
+#: (Gc, w) on the card: w = 8, 40 (chunks shorter than a K-slice), 136 and
+#: 520 take the 4-byte loads with a ragged last K-slice; 64 and 4096 the
+#: whole 16-byte ones (at Gc = 1 the detection pass's variant)
+_CARD_GW = [(1, 8), (1, 64), (1, 136), (1, 4096), (2, 520), (3, 40), (3, 64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,nb,Gc,w", [(64, 2, 1, 8), (64, 3, 3, 40),
-                                       (96, 2, 1, 64), (256, 2, 2, 520)])
-def test_kernel_matches_plain_on_card(cuda_device, T, nb, Gc, w):
+@pytest.mark.parametrize("Gc,w", _CARD_GW)
+@pytest.mark.parametrize("T", [64, 96, 128, 256])
+def test_kernel_matches_plain_on_card(cuda_device, T, Gc, w):
+    """B1 against its plain version: one 128-row sub-tile over a smaller
+    tile (T = 64, 96: rows and columns past T masked by the tile's edge),
+    exactly one (128), several (256); one chunk (five channels staged in
+    turn) and several (five sums in shared memory)."""
+    nb = 3 if Gc == 3 else 2
     g = {k: v.to(cuda_device) for k, v in _group(T + w, T, nb, Gc, w).items()}
     coords = _coords(nb, cuda_device)
     st_k = [torch.full((len(coords), T, T), 0.25, device=cuda_device)
@@ -202,6 +216,53 @@ def test_kernel_matches_plain_on_card(cuda_device, T, nb, Gc, w):
             assert all((s[i] == 0.25).all() for s in st_k)
         elif r == c:
             assert torch.equal(st_k[1][i], st_k[0][i].T)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Gc", [1, 3])
+def test_all_ones_counts_are_exact_fused_on_card(cuda_device, Gc):
+    """All-ones incidence 4096 wide a chunk: n is exactly 4096·Gc and n_out
+    exactly 4096 times the number of non-Ē chunks, the int32 counts carried
+    to float32 unrounded; the scores agree with the plain version."""
+    T, nb, w = 128, 2, 4096
+    g = {k: v.to(cuda_device) for k, v in _group(7 + Gc, T, nb, Gc, w).items()}
+    g["v"] = torch.ones_like(g["v"])
+    g["m"] = torch.tensor([1.0, 0.0, 1.0][:Gc], device=cuda_device)
+    coords = _coords(nb, cuda_device)
+    st_k = [torch.zeros((len(coords), T, T), device=cuda_device)
+            for _ in range(5)]
+    st_r = [s.clone() for s in st_k]
+    ops.tile_scores(g["v"], g["acc"], g["p"], g["d"], g["m"], coords, st_k,
+                    tile=T, s=S_PARAM, n_false=N_FALSE)
+    ref.tile_scores_torch(g["v"], g["acc"], g["p"], g["d"], g["m"], coords,
+                          st_r, tile=T, s=S_PARAM, n_false=N_FALSE)
+    live = coords[:, 0] >= 0
+    n_out = float(w * int(g["m"].sum().item()))
+    assert torch.equal(st_k[2][live].cpu(),
+                       torch.full((int(live.sum()), T, T), float(w * Gc)))
+    assert torch.equal(st_k[3][live].cpu(),
+                       torch.full((int(live.sum()), T, T), n_out))
+    _assert_channels([s.cpu() for s in st_k], [s.cpu() for s in st_r])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Gc,w", [(1, 4096), (3, 64)])
+def test_two_launches_are_bit_equal_on_card(cuda_device, Gc, w):
+    """No float atomics: two launches on the same inputs give the same
+    bits in every channel."""
+    T, nb = 256, 2
+    g = {k: v.to(cuda_device) for k, v in _group(3, T, nb, Gc, w).items()}
+    coords = _coords(nb, cuda_device)
+    runs = []
+    for _ in range(2):
+        st = [torch.zeros((len(coords), T, T), device=cuda_device)
+              for _ in range(5)]
+        ops.tile_scores(g["v"], g["acc"], g["p"], g["d"], g["m"], coords, st,
+                        tile=T, s=S_PARAM, n_false=N_FALSE)
+        runs.append(st)
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
