@@ -4,13 +4,15 @@
     python3 chip_smoke.py
 
 Drives the port's paths on the card — the detection pass
-``repro_torch.core.DetectionEngine(mode="bucketed").detect``, the
+``repro_torch.core.DetectionEngine(mode="bucketed").detect`` and the
+engine's other modes (``bound``, ``bound+``, ``hybrid``, ``incremental``,
+``sampled``, ``sample_verify``), the
 full-square and per-tile copyscore (``repro_torch.kernels.ops.copyscore_store``,
 ``copyscore_tile``) and the index's commit/retract path, the LM serving
 path ``repro_torch.models.Model.prefill`` with
 ``repro_torch.runtime.ServeLoop``, and the LM training path
 ``repro_torch.runtime.train`` — and checks them phase by phase; any
-failure exits non-zero. Phases 13–16 run right after phase 6, while the
+failure exits non-zero. Phases 13–17 run right after phase 6, while the
 full pass's store is still in memory; then phases 7–12. Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -24,11 +26,20 @@ full pass's store is still in memory; then phases 7–12. Phases:
      within rtol 2e-5 / atol 1e-4;
   4. decisions held against the exact INDEX on the S=512 book-like world,
      at tiles 128 and 256, and at S=2048 under a 1 MiB cap on every
-     incidence allocation and group slab, with kernel launches > 0;
+     incidence allocation and group slab, with kernel launches > 0; at
+     S=2048 the scan's four grids at prefetch depths 0 and 2 equal bit for
+     bit, and decisions at depth 2 equal the exact INDEX; at S=512
+     ``bound``, ``bound+``, ``hybrid`` (with their ``BoundState``) and
+     ``sampled`` (rate 0.1) on the card against the same calls with
+     ``device="cpu"``: decisions, decided pairs, decision buckets, the
+     considered set and the counts equal, scores within rtol 2e-5 / atol
+     1e-4;
   5. the full-size pass: a book-like corpus of 16384 sources × 16384 items,
-     default options; stage times, launches (== groups run), device memory,
-     recall of the planted copy pairs, and a sample of the pass's groups
-     held kernel against plain version;
+     default options (staging through the prefetcher at depth 2); stage
+     times, the staging telemetry (staging, stage wait, compute wait),
+     launches (== groups run), device memory, recall of the planted copy
+     pairs, and a sample of the pass's groups held kernel against plain
+     version;
   6. timing of the kernel at the full pass's shapes (CUDA events) beside
      the plain version, ``torch._int_mm`` of the count product alone over
      the full square and over exactly the live r ≤ c tiles (one call per
@@ -108,11 +119,26 @@ full pass's store is still in memory; then phases 7–12. Phases:
      without the epilogue) timed both ways, the int8 rates, B2's ptxas
      report and resident blocks an SM;
  16. the mutation path at S=512: commits of 8 and 32 rows, a retraction,
-     its rollback, the retraction again and a compaction; after each step
-     the bucketed engine on the card over the mutated index decides like
-     the exact INDEX over a rebuild, and ``copyscore_store`` over the
-     committed store (delta and all-padding chunks included) counts like
-     its dense V·Vᵀ with one launch per chunk with a live entry.
+     its rollback, the retraction again, a commit of 4 rows rolled back and
+     a compaction; one bucketed engine on the card follows every step
+     through its block-OR mask cache (``apply_mask_delta``;
+     ``undo_mask_delta`` after the commit's rollback restores the cache bit
+     for bit), takes its tile masks from the cache wherever the deltas
+     chain, and decides like the exact INDEX over a rebuild; and
+     ``copyscore_store`` over the committed store (delta and all-padding
+     chunks included) counts like its dense V·Vᵀ with one launch per chunk
+     with a live entry;
+ 17. the other modes at the full pass's width, on phase 5's corpus, index
+     and decisions (which equal the exact INDEX): (a) the ``incremental``
+     bootstrap (HYBRID) with F ≥ 0.97 against phase 5, its stage seconds,
+     rescored pairs, bound computations, shared values examined and peak
+     memory; (b) one incremental round on p perturbed by N(0, 0.01) from
+     seed 1, F ≥ 0.95 against a ``bucketed`` pass on the perturbed p, with
+     its pass-1 settled share and seconds; (c) ``sample_verify`` at rate
+     0.1 (SCALESAMPLE): B1's launches on the sampled pass, every candidate
+     deciding as phase 5 does and no pair outside the candidates copying,
+     the candidates, sweep rounds, recall of phase 5's copying pairs and
+     the seconds of each stage.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -1294,13 +1320,229 @@ def phase_legacy(torch, np, dev, ops, ref, cfg, card) -> dict:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
+def phase_prefetch(torch, np, dev, ops, cfg, ds, p, index, exact) -> None:
+    """Phase 4, S=2048: the scan at prefetch depth 0 and 2 gives the same
+    four grids bit for bit, and the pass at depth 2 decides like the exact
+    INDEX."""
+    from repro_torch.core import DetectionEngine
+
+    grids = {}
+    for depth in (0, 2):
+        eng = DetectionEngine(cfg, prefetch_depth=depth)
+        ops.tile_scores.launches = 0
+        grids[depth], _ = eng._run_tiled_scan(
+            eng._tiled_prologue(ds, p, index))
+        torch.cuda.synchronize()
+        st = eng._scan_stats
+        if ops.tile_scores.launches != st["groups_run"] or not st["groups_run"]:
+            raise AssertionError(f"S=2048 depth {depth}: launches "
+                                 f"{ops.tile_scores.launches} != groups run")
+        log(f"[4] S=2048 prefetch depth {depth}: {st['groups_run']} groups, "
+            f"scan {st['scan_s']:.3f} s (B1 device time "
+            f"{st['scan_kernel_ms']:.3f} ms), staging {st['staging_s']:.3f} "
+            f"s, stage wait {st['stage_wait_s']:.3f} s, compute wait "
+            f"{st['compute_wait_s']:.3f} s")
+    for name, a, b in zip(("C_same", "count", "non-Ē count", "error bound"),
+                          grids[0], grids[2]):
+        if not torch.equal(a, b):
+            raise AssertionError(f"S=2048: the {name} grid differs between "
+                                 f"prefetch depths 0 and 2")
+    res = DetectionEngine(cfg, prefetch_depth=2).detect(ds, p, index=index)
+    if not np.array_equal(res.copying, exact.copying):
+        raise AssertionError("S=2048 depth 2: decisions != exact INDEX")
+    log("[4] S=2048: the four grids at depths 0 and 2 are equal bit for bit; "
+        "decisions at depth 2 == exact INDEX")
+
+
+def phase_modes(torch, np, dev, ops, cfg, ds, p, index) -> None:
+    """Phase 4, S=512: BOUND, BOUND+, HYBRID and sampled (rate 0.1) on the
+    card against the same functions with device="cpu": decisions, the
+    BoundState's decisions, decision buckets, considered set and counts
+    equal; scores within rtol 2e-5 / atol 1e-4 (C4)."""
+    from repro_torch.core import DetectionEngine
+    from repro_torch.core.bound import bound_detect
+
+    def close(a, b, what):
+        a, b = np.asarray(a), np.asarray(b)
+        if not np.allclose(a, b, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"S=512 {what}: card and CPU differ by "
+                                 f"{float(np.abs(a - b).max()):.3e}")
+        return float(np.abs(a - b).max())
+
+    for mode, timers, l_thr in (("bound", False, 0), ("bound+", True, 0),
+                                ("hybrid", True, 16)):
+        got = {}
+        for d in (dev, "cpu"):
+            res = DetectionEngine(cfg, mode=mode, device=d).detect(
+                ds, p, index=index)
+            _, st = bound_detect(ds, p, cfg, use_timers=timers,
+                                 l_threshold=l_thr, index=index,
+                                 return_state=True, device=d)
+            got[str(d)] = (res, {f: getattr(st, f).cpu().numpy() for f in (
+                "decided", "dec_bucket", "considered", "n0", "n_full", "c0",
+                "c_hat", "err")})
+        (rc, sc_), (rh, sh) = got[str(dev)], got["cpu"]
+        for f in ("decided", "dec_bucket", "considered", "n0", "n_full"):
+            if not np.array_equal(sc_[f], sh[f]):
+                raise AssertionError(f"S=512 {mode}: BoundState.{f} differs "
+                                     f"between the card and the CPU")
+        if (not np.array_equal(rc.copying, rh.copying)
+                or rc.counter.shared_values_examined
+                != rh.counter.shared_values_examined):
+            raise AssertionError(f"S=512 {mode}: decisions or shared values "
+                                 f"examined differ between the card and the "
+                                 f"CPU")
+        err = max(close(rc.c_fwd, rh.c_fwd, f"{mode} C→"),
+                  *(close(sc_[f], sh[f], f"{mode} {f}")
+                    for f in ("c0", "c_hat", "err")))
+        # the BOUND+ timers are ceilings of float32 quotients, so a
+        # last-place difference of the scores can move a re-check by a
+        # bucket: the bound computations are printed, not compared
+        log(f"[4] S=512 {mode}: card == CPU (decisions, decided, dec_bucket, "
+            f"considered, n0, n_full, shared values examined; "
+            f"{len(rc.copying_pairs())} copying pairs, "
+            f"{int((sc_['decided'] != 0).sum())} frozen early), scores max "
+            f"|Δ| {err:.3e}; bound computations {rc.counter.bound_computations}"
+            f" on the card, {rh.counter.bound_computations} on the CPU")
+    got = {}
+    for d in (dev, "cpu"):
+        eng = DetectionEngine(cfg, mode="sampled", sample_rate=0.1, device=d)
+        ops.tile_scores.launches = 0
+        got[str(d)] = (eng.detect(ds, p), ops.tile_scores.launches)
+    (rc, launches), (rh, _) = got[str(dev)], got["cpu"]
+    if launches <= 0 or not np.array_equal(rc.copying, rh.copying):
+        raise AssertionError("S=512 sampled: no B1 launch on the card, or "
+                             "decisions differ between the card and the CPU")
+    err = close(rc.c_fwd, rh.c_fwd, "sampled C→")
+    log(f"[4] S=512 sampled (rate 0.1): card == CPU ({len(rc.copying_pairs())} "
+        f"copying pairs, B1 launches {launches}), C→ max |Δ| {err:.3e}")
+
+
+def _perturb(np, p, seed, scale):
+    """The JAX package's round perturbation (tests/test_incremental.py):
+    N(0, scale) noise on the claimed probabilities, clipped to
+    [1e-3, 0.999]."""
+    rng = np.random.default_rng(seed)
+    noise = rng.normal(0.0, scale, size=p.shape).astype(np.float32)
+    return np.clip(p + np.where(p > 0, noise, 0.0), 1e-3, 0.999)
+
+
+def phase_slice(torch, np, dev, ops, cfg, ds, p, index, copying5) -> None:
+    """Phase 17: this slice's modes at the full pass's width (phase 5's
+    S=16384 corpus, index and decisions, which equal the exact INDEX):
+    (a) the INCREMENTAL bootstrap (HYBRID), F ≥ 0.97 against phase 5;
+    (b) one INCREMENTAL round on p perturbed by N(0, 0.01) from seed 1,
+    F ≥ 0.95 against a bucketed pass on the perturbed p; (c) sample_verify
+    at rate 0.1 (SCALESAMPLE): every candidate decides as phase 5 does, no
+    pair outside the candidates is copying."""
+    from repro_torch.core import DetectionEngine, pair_f_measure
+
+    truth5 = _pairs_of(np, copying5)
+
+    def f_measure(copying, truth):
+        return pair_f_measure(_pairs_of(np, copying), truth)
+
+    # (a) the bootstrap: HYBRID with the round bookkeeping
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = DetectionEngine(cfg, mode="incremental")
+    t0 = time.perf_counter()
+    boot = eng.detect(ds, p, index=index)
+    boot_s = time.perf_counter() - t0
+    st = eng.last_stats
+    prec, rec, f = f_measure(boot.copying, truth5)
+    log(f"[17a] incremental bootstrap (HYBRID) S={ds.n_sources}: {boot_s:.3f} "
+        f"s (considered {st['considered_s']:.3f}, bound scan "
+        f"{st['bound_scan_s']:.3f} over {st['buckets']} buckets, rescore "
+        f"{st['rescore_s']:.3f} of {st['rescored_pairs']} pairs, bookkeeping "
+        f"{st['bookkeeping_s']:.3f}); bound_computations "
+        f"{boot.counter.bound_computations}, shared_values_examined "
+        f"{boot.counter.shared_values_examined}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    log(f"[17a] against phase 5 (== exact INDEX): precision {prec:.4f} "
+        f"recall {rec:.4f} F {f:.4f} ({len(_pairs_of(np, boot.copying))} "
+        f"copying pairs)")
+    if f < 0.97:
+        raise AssertionError(f"HYBRID bootstrap F {f:.4f} < 0.97")
+    del boot
+
+    # (b) one round on perturbed probabilities, against a bucketed pass
+    p1 = _perturb(np, p, 1, 0.01)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    rnd = eng.detect(ds, p1)
+    rnd_s = time.perf_counter() - t0
+    st = eng.last_stats
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    ref = DetectionEngine(cfg).detect(ds, p1)
+    ref_s = time.perf_counter() - t0
+    prec, rec, f = f_measure(rnd.copying, _pairs_of(np, ref.copying))
+    log(f"[17b] incremental round: {rnd_s:.3f} s (pass 1 {st['pass1_s']:.3f}, "
+        f"rescore {st['rescore_s']:.3f} of {st['candidates']} candidates; "
+        f"{st['big_entries']} big-change entries); pass1_settled "
+        f"{st['pass1_settled']:.4f}; peak device memory {peak:.3f} GiB")
+    log(f"[17b] against a bucketed pass on the perturbed p ({ref_s:.3f} s "
+        f"with its index build): precision {prec:.4f} recall {rec:.4f} F "
+        f"{f:.4f}")
+    if f < 0.95:
+        raise AssertionError(f"incremental round F {f:.4f} < 0.95")
+    del rnd, ref, p1, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) sample-then-verify at rate 0.1, SCALESAMPLE
+    torch.cuda.reset_peak_memory_stats()
+    eng = DetectionEngine(cfg, mode="sample_verify", sample_rate=0.1)
+    ops.tile_scores.launches = 0              # count this path's launches
+    t0 = time.perf_counter()
+    res = eng.detect(ds, p)
+    sv_s = time.perf_counter() - t0
+    launches = ops.tile_scores.launches
+    st = eng.last_stats
+    ss = st["sampled_stats"]
+    cand = eng._last_considered.cpu().numpy()
+    if launches <= 0 or launches != ss["kernel_launches"]:
+        raise AssertionError(f"sample_verify: B1 launches {launches}, the "
+                             f"sampled pass counted {ss['kernel_launches']}")
+    if not (res.copying[cand] == copying5[cand]).all():
+        raise AssertionError("sample_verify: a candidate pair decides unlike "
+                             "phase 5 (the exact INDEX)")
+    if res.copying[~cand].any():
+        raise AssertionError("sample_verify: a pair outside the candidate "
+                             "set is copying")
+    found = _pairs_of(np, res.copying)
+    log(f"[17c] sample_verify rate 0.1: {sv_s:.3f} s; {st['items_sampled']} "
+        f"items ({st['item_rate']}); sampled pass: index build "
+        f"{ss['index_build_s']:.3f}, prologue {ss['prologue_s']:.3f}, scan "
+        f"{ss['scan_s']:.3f} ({launches} B1 launches, device "
+        f"{ss['scan_kernel_ms']:.3f} ms), finalize {ss['finalize_s']:.3f}; "
+        f"sweep {st['sweep_s']:.3f} s ({st['sweep_rounds']} rounds, slack "
+        f"{st['slack_final']}), exact rescore {st['rescore_s']:.3f} s of "
+        f"{st['candidate_pairs']} candidates")
+    log(f"[17c] every candidate decides as phase 5, none outside is copying; "
+        f"recall of phase 5's {len(truth5)} copying pairs "
+        f"{len(found & truth5) / max(len(truth5), 1):.4f}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
+def _pairs_of(np, copying):
+    """The unordered copying pairs (i < j) of a decision matrix."""
+    i, j = np.nonzero(np.triu(copying, 1))
+    return set(zip(i.tolist(), j.tolist()))
+
+
 def phase_mutation(torch, np, dev, ops, cfg) -> int:
-    """Phase 16: the mutation path on the card at S=512. After every step
-    of a commit / retract / rollback / compaction schedule, the bucketed
-    engine on the card over the mutated index decides like the exact INDEX
-    over a rebuild, and ``copyscore_store`` over the committed store counts
-    like its dense V·Vᵀ with one launch per chunk with a live entry.
-    Returns the store path's launches."""
+    """Phase 16: the mutation path on the card at S=512. One engine follows
+    a commit / retract / rollback / transient commit / compaction schedule
+    through its block-OR mask cache (``apply_mask_delta``, and
+    ``undo_mask_delta`` after a commit's rollback): after every step it
+    detects against the persistent index, from the cache wherever the
+    schedule's deltas chain, and decides like the exact INDEX over a
+    rebuild; ``copyscore_store`` over the committed store counts like its
+    dense V·Vᵀ with one launch per chunk with a live entry. Returns the
+    store path's launches."""
     from repro_torch.core import (
         DetectionEngine,
         build_index,
@@ -1330,13 +1572,34 @@ def phase_mutation(torch, np, dev, ops, cfg) -> int:
                       row_capacity=world.n_sources, device=dev)
     q1, q2 = MUTATION_COMMITS
     first = np.arange(MUTATION_BASE_ROWS, MUTATION_BASE_ROWS + q1)
+    eng = DetectionEngine(cfg)
     receipts = []
 
-    def commit(q):
+    def detect(name, source):
+        """The engine on the card over the persistent index against the
+        exact INDEX over a rebuild, its tile masks from ``source``."""
+        ds, p = claims(rows)
+        exact = index_detect_exact(ds, p, cfg,
+                                   index=build_index(ds, p, cfg, device=dev))
+        res = eng.detect(ds, p, index=idx)
+        st = eng.last_stats
+        if not np.array_equal(res.copying, exact.copying):
+            raise AssertionError(f"mutation step {name!r}: bucketed decisions "
+                                 f"on the card != exact INDEX over a rebuild")
+        if st["kernel_launches"] <= 0:
+            raise AssertionError(f"mutation step {name!r}: no B1 launch")
+        if st["mask_source"] != source:
+            raise AssertionError(f"mutation step {name!r}: tile masks from "
+                                 f"{st['mask_source']!r}, expected {source!r}")
+        return ds, exact, st
+
+    def commit(q, new=None):
         nonlocal rows
-        rows = np.arange(len(rows) + q)
-        receipts.append((commit_rows(idx, *claims(rows), cfg, q,
-                                     compact=False), rows[:-q]))
+        before = rows
+        rows = np.concatenate([rows, np.arange(len(rows), len(rows) + q)
+                               if new is None else new])
+        info = commit_rows(idx, *claims(rows), cfg, q, compact=False)
+        receipts.append((info, before, eng.apply_mask_delta(info.delta)))
 
     def retract():
         nonlocal rows
@@ -1344,32 +1607,40 @@ def phase_mutation(torch, np, dev, ops, cfg) -> int:
         before = rows
         rows = np.delete(rows, gone)
         ds, _ = claims(rows)
-        receipts.append((retract_rows(idx, ds, cfg, gone), before))
+        info = retract_rows(idx, ds, cfg, gone)
+        receipts.append((info, before, eng.apply_mask_delta(info.delta)))
 
     def rollback():
         nonlocal rows
-        info, rows = receipts.pop()
+        info, rows, token = receipts.pop()
         rollback_commit(idx, info)
+        eng.undo_mask_delta(token)
 
-    steps = [(f"commit q={q1}", lambda: commit(q1)),
-             (f"commit q={q2}", lambda: commit(q2)),
-             (f"retract {len(first) + 2} rows", retract),
-             ("rollback the retraction", rollback),
-             (f"retract {len(first) + 2} rows again", retract),
-             ("compaction", lambda: compact_index(idx, cfg))]
+    def transient():
+        """Commit 4 rows, detect on the committed corpus, roll back and undo
+        the cache's update: its bits return to the pre-commit ones."""
+        before = eng._mask_cache.block_inc.copy()
+        commit(4, new=first[:4])
+        _, exact, _ = detect("transient commit", "cache")
+        rollback()
+        if not np.array_equal(eng._mask_cache.block_inc, before):
+            raise AssertionError("undo_mask_delta did not restore the cache")
+        log(f"[16] transient commit of 4 rows: cache hit, decisions == exact "
+            f"INDEX ({len(exact.copying_pairs())} copying pairs); after the "
+            f"rollback undo_mask_delta restored the cache bit for bit")
+
+    detect("before the schedule", "fresh")           # the cache's first build
+    steps = [(f"commit q={q1}", lambda: commit(q1), "cache"),
+             (f"commit q={q2}", lambda: commit(q2), "cache"),
+             (f"retract {len(first) + 2} rows", retract, "cache"),
+             ("rollback the retraction", rollback, "fresh"),
+             (f"retract {len(first) + 2} rows again", retract, "cache"),
+             ("commit 4 rows and roll back", transient, "cache"),
+             ("compaction", lambda: compact_index(idx, cfg), "fresh")]
     launches, padding_seen = 0, 0
-    for name, step in steps:
+    for name, step, source in steps:
         step()
-        ds, p = claims(rows)
-        exact = index_detect_exact(ds, p, cfg,
-                                   index=build_index(ds, p, cfg, device=dev))
-        eng = DetectionEngine(cfg)
-        res = eng.detect(ds, p, index=idx)
-        if not np.array_equal(res.copying, exact.copying):
-            raise AssertionError(f"mutation step {name!r}: bucketed decisions "
-                                 f"on the card != exact INDEX over a rebuild")
-        if eng.last_stats["kernel_launches"] <= 0:
-            raise AssertionError(f"mutation step {name!r}: no B1 launch")
+        ds, exact, est = detect(name, source)
         st = idx.store
         widths = [c.shape[1] for c in st.chunks]
         p_hat, _, _ = _segment_p_stats(st.entry_p, st.entry_item >= 0,
@@ -1391,8 +1662,11 @@ def phase_mutation(torch, np, dev, ops, cfg) -> int:
             f"({st.n_delta_chunks} delta, {st.n_chunks - live} all padding); "
             f"bucketed on the card == exact INDEX over a rebuild "
             f"({len(exact.copying_pairs())} copying pairs, B1 launches "
-            f"{eng.last_stats['kernel_launches']}); copyscore_store counts == "
-            f"V·Vᵀ, {live} launches == live chunks")
+            f"{est['kernel_launches']}, tile masks from {est['mask_source']}, "
+            f"cache hits {est['mask_cache_hits']}, full builds "
+            f"{est['mask_full_builds']}, cells updated "
+            f"{est['mask_blocks_updated']}); copyscore_store counts == V·Vᵀ, "
+            f"{live} launches == live chunks")
     if not padding_seen:
         raise AssertionError("the schedule left no all-padding chunk: the "
                              "store path's skip was not exercised")
@@ -1469,7 +1743,8 @@ def main() -> int:
     # -- 4. decisions against the exact INDEX at S=512 ------------------------
     sc = synthetic_claims(SyntheticSpec(**WORLD_512))
     p512 = oracle_claim_probs(sc)
-    idx512 = build_index(sc.dataset, p512, cfg, device=dev)
+    ds512 = sc.dataset
+    idx512 = build_index(ds512, p512, cfg, device=dev)
     exact = index_detect_exact(sc.dataset, p512, cfg, index=idx512)
     for tile in (128, 256):
         eng = DetectionEngine(cfg, tile=tile)
@@ -1503,6 +1778,9 @@ def main() -> int:
         f"({len(exact.copying_pairs())} copying pairs), largest build chunk "
         f"{largest} B, group slab {st['peak_group_bytes']} B, launches "
         f"{st['kernel_launches']}")
+    phase_prefetch(torch, np, dev, ops, cfg, sc.dataset, p2k,
+                   build_index(sc.dataset, p2k, cfg, device=dev), exact)
+    phase_modes(torch, np, dev, ops, cfg, ds512, p512, idx512)
 
     # -- 5. the full-size pass ------------------------------------------------
     spec = SyntheticSpec(n_sources=FULL_SOURCES, n_items=FULL_ITEMS,
@@ -1546,6 +1824,12 @@ def main() -> int:
         f"{st['scan_kernel_ms']:.3f} ms over {launches} launches), finalize "
         f"{st['finalize_s']:.3f} of which rescore {st['rescore_s']:.3f} "
         f"({st['rescored_pairs']} pairs)")
+    log(f"[5] staging at prefetch depth {st['prefetch_depth']} (s): staging "
+        f"{st['staging_s']:.3f} on the producer thread, stage wait "
+        f"{st['stage_wait_s']:.3f} (the kernel loop waiting for a slab), "
+        f"compute wait {st['compute_wait_s']:.3f} (the producer waiting for "
+        f"a slot or queue place), beside scan {st['scan_s']:.3f} and B1 "
+        f"device time {st['scan_kernel_ms'] / 1e3:.3f}")
     log(f"[5] max device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
         f"GiB; pairs considered {res.counter.pairs_considered}; copying "
         f"{len(found)}; planted recall {recall:.4f} "
@@ -1556,13 +1840,11 @@ def main() -> int:
     # sample of the pass's own groups, kernel vs plain version
     ctx = eng._tiled_prologue(ds, p, index)
     groups = eng._scan_groups(ctx)
-    host = torch.empty((ctx.S_pad, ctx.Gc, ctx.ech.width), dtype=torch.int8,
-                       pin_memory=True)
     T = ctx.T
     acc = torch.from_numpy(ctx.acc_pad).to(dev)
     for gi in sorted({0, len(groups) // 2, len(groups) - 1}):
         ks, gmask = groups[gi]
-        v, p_g, d_g, o_g, coords_g = eng._stage_group(ctx, ks, gmask, host)
+        v, p_g, d_g, o_g, coords_g = eng._stage_group(ctx, ks, gmask)
         err = _compare_group(torch, ops, ref, v, acc, p_g, d_g, o_g, coords_g,
                              T, cfg)
         worst = max(worst, err)
@@ -1571,7 +1853,7 @@ def main() -> int:
 
     # -- 6. timing at the full pass's shapes ----------------------------------
     ks, gmask = groups[len(groups) // 2]
-    v, p_g, d_g, o_g, coords_g = eng._stage_group(ctx, ks, gmask, host)
+    v, p_g, d_g, o_g, coords_g = eng._stage_group(ctx, ks, gmask)
     n = coords_g.shape[0]
     stacks = [torch.zeros((n, T, T), device=dev) for _ in range(5)]
     args = (v, acc, p_g, d_g, o_g, coords_g, stacks)
@@ -1637,8 +1919,8 @@ def main() -> int:
             raise AssertionError("a timing is not a positive number")
     b1 = {"launches": launches, "max_abs_err": worst, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-    del (groups, host, acc, v, p_g, d_g, o_g, coords_g, stacks, args, v2,
-         idx512, idx2k, p512, p2k, exact)
+    del (groups, acc, v, p_g, d_g, o_g, coords_g, stacks, args, v2,
+         ds512, idx512, idx2k, p512, p2k, exact)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1654,8 +1936,15 @@ def main() -> int:
     # -- 16. the mutation path at S=512 --------------------------------------
     phase_mutation(torch, np, dev, ops, cfg)
 
+    # -- 17. this slice's modes at the full pass's width ---------------------
+    copying5 = res.copying
+    del eng, res, ctx                         # phase 5's grids leave the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_slice(torch, np, dev, ops, cfg, ds, p, index, copying5)
+
     # the detection side's data leave the card before the LM phases
-    del sc, ds, p, index, eng, res, ctx
+    del sc, ds, p, index, copying5
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -3,9 +3,15 @@
 Public API (the slice ported so far):
   CopyConfig, ClaimsDataset, DetectionResult    — data model
   DetectionEngine, EngineOptions                — THE detection entry point
-                                                  (modes pairwise, exact,
-                                                  bucketed)
+                                                  (all nine modes of the JAX
+                                                  engine, on one device)
   pairwise_detect                               — exhaustive baseline (§II-B)
+  bound_detect, hybrid_detect, BoundState       — BOUND/BOUND+/HYBRID (§IV)
+  make_incremental_state, incremental_detect,
+  IncrementalState                              — INCREMENTAL rounds (§V)
+  sample_by_item, sample_by_cell, scale_sample  — sampling (§VI)
+  BlockOrCache                                  — commit-maintained tile masks
+  ChunkPrefetcher, PipelineStageError           — staged chunk pipeline
   build_index, engine_chunks, InvertedIndex     — inverted index (§III)
   bucketize, bucketize_engine, BucketedIndex    — legacy bucket views
   commit_rows, retract_rows, rollback_commit,
@@ -15,13 +21,19 @@ Public API (the slice ported so far):
   rescore_pairs_exact                           — exact pair rescore
   CorpusStore, StoreSnapshot                    — chunked incidence store
 """
+from repro_torch.core.bound import BoundState, bound_detect, hybrid_detect
 from repro_torch.core.bucketed import (
     bucketed_index_detect,
     index_detect_exact,
     pad_buckets,
 )
 from repro_torch.core.engine import DetectionEngine, EngineOptions
-from repro_torch.core.incremental import rescore_pairs_exact
+from repro_torch.core.incremental import (
+    IncrementalState,
+    incremental_detect,
+    make_incremental_state,
+    rescore_pairs_exact,
+)
 from repro_torch.core.index import (
     BucketedIndex,
     CommitInfo,
@@ -38,8 +50,11 @@ from repro_torch.core.index import (
     retract_rows,
     rollback_commit,
 )
+from repro_torch.core.pipeline import ChunkPrefetcher, PipelineStageError
+from repro_torch.core.sampling import sample_by_cell, sample_by_item, scale_sample
 from repro_torch.core.scoring import pairwise_detect
 from repro_torch.core.store import CorpusStore, StoreSnapshot
+from repro_torch.core.tilecache import BlockOrCache
 from repro_torch.core.types import (
     ClaimsDataset,
     CopyConfig,
@@ -56,5 +71,8 @@ __all__ = [
     "BucketedIndex", "bucketize", "bucketize_engine", "CommitInfo",
     "RetractInfo", "MutationDelta", "commit_rows", "retract_rows",
     "rollback_commit", "compact_index", "canonicalized",
-    "bucketed_index_detect", "pad_buckets",
+    "bucketed_index_detect", "pad_buckets", "BoundState", "bound_detect",
+    "hybrid_detect", "IncrementalState", "make_incremental_state",
+    "incremental_detect", "sample_by_item", "sample_by_cell", "scale_sample",
+    "BlockOrCache", "ChunkPrefetcher", "PipelineStageError",
 ]

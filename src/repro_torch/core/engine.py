@@ -1,7 +1,8 @@
 """DetectionEngine — the entry point for copy detection, on one device.
 
-The production ``bucketed`` mode is the pair-tiled dataflow of the JAX
-package's engine, on one card:
+Every mode of the JAX package's engine runs here, on the card or (with
+``device="cpu"``) on the CPU. The production ``bucketed`` mode is the
+pair-tiled dataflow of the JAX package's engine, on one card:
 
   1. build the inverted index (host numpy, streamed into the chunked
      ``CorpusStore``; the O(S²·D) ``l_counts`` product on the device) and
@@ -9,22 +10,37 @@ package's engine, on one card:
      (``engine_chunks`` — chunks double as the kernel's entry blocks);
   2. cut the S×S pair space into T×T tiles and prune, up front, every tile
      whose sources co-occur only inside the low-contribution suffix Ē
-     (Proposition 3.4), from the per-chunk OR-reduced incidence; only
-     unordered (r ≤ c) tiles are scheduled;
-  3. stream chunk groups (default one chunk per pass) host→device from
-     pinned memory and launch the fused dual-direction copyscore kernel
-     once per group over the whole surviving tile list; the five per-tile
-     channels accumulate in device stacks across groups;
+     (Proposition 3.4), from the per-chunk OR-reduced incidence — taken
+     from the commit-maintained ``BlockOrCache`` when detecting against a
+     persistent index it follows; only unordered (r ≤ c) tiles are
+     scheduled;
+  3. stream chunk groups (default one chunk per pass) host→device through
+     the ``ChunkPrefetcher``: a producer thread fills pinned slabs of a
+     ``SlabRing`` ``prefetch_depth`` groups ahead and uploads them on a side
+     stream while the fused dual-direction copyscore kernel runs, once per
+     group, over the whole surviving tile list; the five per-tile channels
+     accumulate in device stacks across groups;
   4. scatter both orientations of every tile into (S, S) device grids,
      apply the INDEX step-3 different-value adjustment, exactly rescore
      every pair whose decision margin is within its accumulated error
      bound, and decide — all in torch on the engine's device. Decisions
      equal ``index_detect_exact``.
 
-Modes carried in this slice: ``pairwise`` (the exhaustive oracle),
-``exact`` (entry-sequential INDEX with the paper's accounting) and
-``bucketed``. The others raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+Modes
+  pairwise      exhaustive oracle (§II-B)
+  exact         entry-sequential INDEX with the paper's accounting (§III)
+  bucketed      the tiled production INDEX (above)
+  bound/bound+  early-terminating BOUND, optionally with timers (§IV)
+  hybrid        BOUND+ for pairs sharing > l_threshold items (§IV-C)
+  incremental   stateful rounds: the first call bootstraps HYBRID and its
+                bookkeeping, later calls apply per-round deltas (§V)
+  sampled       item sampling (§VI), then the tiled path on the subset
+  sample_verify SCALESAMPLE candidate discovery, then an exact rescore of
+                only the candidate pairs — decisions on the candidate set
+                equal ``index_detect_exact``
+
+The multi-device and shard-owner planes of the JAX engine (``devices``,
+``n_shards``, ``mesh_shape`` and the owner fan-out) are not carried.
 """
 from __future__ import annotations
 
@@ -35,18 +51,27 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import tilecache
+from repro_torch.core.bound import bound_detect
 from repro_torch.core.bucketed import index_detect_exact
 from repro_torch.core.distributed import group_tile_scores
-from repro_torch.core.incremental import rescore_pairs_exact
+from repro_torch.core.incremental import (
+    dataset_tensors,
+    incremental_detect,
+    make_incremental_state,
+    rescore_pairs_exact,
+)
 from repro_torch.core.index import InvertedIndex, build_index, engine_chunks
+from repro_torch.core.pipeline import ChunkPrefetcher, SlabRing
+from repro_torch.core.sampling import sample_by_cell, sample_by_item, scale_sample
 from repro_torch.core.scoring import (
+    PAIR_BATCH_ELEMENTS,
     bucket_score_deltas,
     decide_copying,
     pairwise_detect,
     posterior_independence,
 )
 from repro_torch.core.shardplan import scatter_tile_stacks
-from repro_torch.core.tilecache import chunk_block_inc
 from repro_torch.core.types import ClaimsDataset, CopyConfig, DetectionResult
 from repro_torch.kernels.ops import tile_scores
 from repro_torch.utils.counters import ComputeCounter
@@ -55,15 +80,11 @@ from repro_torch.utils.device import resolve_device
 MODES = ("pairwise", "exact", "bucketed", "bound", "bound+", "hybrid",
          "incremental", "sampled", "sample_verify")
 
-#: modes of the JAX engine this slice does not carry, and the ROADMAP item
-#: that ports them
-_NOT_PORTED = {"bound": "A8", "bound+": "A8", "hybrid": "A8",
-               "incremental": "A8", "sampled": "A8", "sample_verify": "A8"}
-
 
 @dataclass
 class EngineOptions:
-    """Tuning knobs of the tiled pass (the JAX engine's, where carried)."""
+    """Tuning knobs (the JAX engine's, where carried); mode-specific fields
+    are ignored by other modes."""
 
     # entry buckets per index (count): the p̂ granularity of the chunks.
     n_buckets: int = 64
@@ -76,6 +97,35 @@ class EngineOptions:
     # incidence element type: auto | int8 (0/1 incidence, exact int32
     # counts). The JAX engine's bf16/f32 ablations are not carried.
     incidence_dtype: str = "auto"
+    # hybrid crossover: apply BOUND checks only to pairs sharing more than
+    # this many items; None → 16, the paper's §IV-C empirical crossover.
+    l_threshold: Optional[int] = None
+    # sampled / sample_verify: fraction of item columns to keep (0..1].
+    # 0.1 reproduces the paper's §VI operating point (Table IX).
+    sample_rate: float = 0.1
+    # sampling strategy: scale (SCALESAMPLE) | item (BYITEM) | cell (BYCELL).
+    sample_strategy: str = "scale"
+    # SCALESAMPLE floor (items per source): every source keeps ≥ this many
+    # sampled items when it has them. 4 is the paper's N (§VI-E).
+    min_per_source: int = 4
+    # RNG seed for the item sample — fixed so detection runs are replayable.
+    sample_seed: int = 1
+    # incremental: |ΔM̂| (log-odds units) above which an entry is treated as
+    # a big change and replayed exactly (§V-A; 1.0 ≈ the paper's ρ).
+    rho: float = 1.0
+    # incremental: |ΔA| accuracy drift that forces a pair rescore
+    # unconditionally (fraction, 0..1). 0.2 is the paper's ρ_acc.
+    rho_acc: float = 0.2
+    # sample_verify: initial half-width (log-odds units, sampled-score scale)
+    # of the candidate net below the copying boundary z = 0. 2.0 ≈ the
+    # decision band where sampling noise plausibly hides a true pair.
+    verify_slack: float = 2.0
+    # sample_verify: multiplicative step of the recall-slack sweep (> 1).
+    verify_slack_growth: float = 1.6
+    # sample_verify: stop widening when the next shell of near-miss pairs
+    # holds fewer than this fraction of the current candidate set — the
+    # empirical bound on pairs the net might still miss.
+    verify_miss_frac: float = 0.02
     # chunks of the engine store shipped per device pass (count). 1 is
     # strict streaming; None → auto-size from chunk_group_bytes, capped at
     # K−1 so a chunked store's full incidence is never resident at once.
@@ -90,6 +140,12 @@ class EngineOptions:
     # byte budget for the largest single incidence allocation during index
     # build (wins over store_chunk_entries; width = bytes // rows).
     store_chunk_bytes: Optional[int] = None
+    # chunk groups staged host→device AHEAD of the running kernel (count):
+    # a producer thread fills and uploads group G+1's slab while group G
+    # computes, double-buffered at depth 2. 0 → staging runs in the
+    # consumer's thread between launches; stall telemetry (stage_wait_s /
+    # compute_wait_s) lands in last_stats either way.
+    prefetch_depth: int = 2
 
 
 @dataclass
@@ -114,6 +170,7 @@ class TileScanContext:
     n_tiles: int
     Gc: int                        # chunks per device pass
     chunk_nbytes: int
+    mask_source: str = "fresh"     # tile masks from the cache or a fresh reduction
     index_build_s: float = 0.0     # host seconds building the index (0 if given)
     prologue_s: float = 0.0        # host seconds of the rest of the prologue
 
@@ -122,16 +179,15 @@ class DetectionEngine:
     """One engine per detection workload, bound to one device.
 
     ``device=None`` is the card; a missing card raises. Pass ``device="cpu"``
-    to run the plain PyTorch path on the CPU.
+    to run the plain PyTorch path on the CPU. Stateless for one-shot modes;
+    ``incremental`` carries the paper's §V bookkeeping across ``detect``
+    calls (``reset()`` drops it).
     """
 
     def __init__(self, cfg: CopyConfig, mode: str = "bucketed", device=None,
                  **options):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
-        if mode in _NOT_PORTED:
-            raise NotImplementedError(
-                f"mode {mode!r} is not ported yet (ROADMAP {_NOT_PORTED[mode]})")
         self.cfg = cfg
         self.mode = mode
         self.device = resolve_device(device)
@@ -142,6 +198,85 @@ class DetectionEngine:
                 f"int8 incidence is carried ('auto' or 'int8')")
         self.last_stats: dict = {}
         self._scan_stats: dict = {}
+        self._inc_state = None
+        # (S, S) bool on the device: the pairs the last tiled pass considered
+        # (sample_verify: its candidate set)
+        self._last_considered: Optional[torch.Tensor] = None
+        # block-OR mask cache over the LAST persistent index this engine
+        # detected against, delta-updated at commit/retract time
+        self._mask_cache = None
+        self._mask_cache_hits = 0
+        self._mask_full_builds = 0
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def reset(self) -> None:
+        """Drop incremental bookkeeping (next detect() bootstraps afresh)."""
+        self._inc_state = None
+
+    @property
+    def incremental_state(self):
+        """§V bookkeeping (None until an incremental detect() has run)."""
+        return self._inc_state
+
+    # -- incremental tile-prune mask cache ----------------------------------
+
+    def apply_mask_delta(self, delta):
+        """Propagate a commit/retract ``MutationDelta`` into the mask cache.
+
+        Call right after ``commit_rows`` / ``retract_rows`` so the next
+        ``detect(..., index=...)`` reuses the cached block incidence
+        (updated in O(touched cells)) instead of regathering all K chunk
+        reductions. Returns an opaque undo token for commits — pair it with
+        ``undo_mask_delta`` around a transient commit→detect→rollback — and
+        None otherwise. A no-op when no cache exists yet; a delta that
+        doesn't chain (wrong ``from_mseq``, compaction) marks the cache
+        stale for a fresh rebuild.
+        """
+        cache = self._mask_cache
+        if cache is None or delta is None:
+            return None
+        inner = cache.apply(delta)
+        return None if inner is None else (cache, inner)
+
+    def undo_mask_delta(self, token) -> None:
+        """Reverse ``apply_mask_delta`` after the index store rolled back.
+
+        Re-adopts the cache object the token came from (a detect between
+        apply and undo may have swapped ``_mask_cache``), so the restored
+        incidence — bit-exact to the pre-commit state — serves the next
+        pass. ``None`` tokens are no-ops.
+        """
+        if token is None:
+            return
+        cache, inner = token
+        cache.undo(inner)
+        self._mask_cache = cache
+
+    def rebase_mask_cache(self, delta) -> None:
+        """Re-anchor a cache adopted DURING a transient commit onto the base.
+
+        Call (instead of ``undo_mask_delta``) when ``apply_mask_delta``
+        returned no token — no cache existed before the transient commit,
+        so whatever the detect pass adopted is anchored on the
+        mid-transient store state. ``BlockOrCache.rebase`` shrinks it back
+        onto the restored base store.
+        """
+        cache = self._mask_cache
+        if cache is None:
+            return
+        if delta is None:
+            self.invalidate_mask_cache()
+            return
+        cache.rebase(delta)
+        if cache.stale:
+            self._mask_cache = None
+
+    def invalidate_mask_cache(self) -> None:
+        """Drop the mask cache (the next indexed detect rebuilds it fresh)."""
+        if self._mask_cache is not None:
+            self._mask_cache.stale = True
+        self._mask_cache = None
 
     # -- dispatch -----------------------------------------------------------
 
@@ -150,6 +285,7 @@ class DetectionEngine:
         ds: ClaimsDataset,
         p_claim: np.ndarray,
         index: InvertedIndex | None = None,
+        items: np.ndarray | None = None,
     ) -> DetectionResult:
         """Run one detection pass in this engine's mode.
 
@@ -159,19 +295,172 @@ class DetectionEngine:
             source provides per item (equal across providers of one value;
             ignored where values[s, d] < 0).
           index: a prebuilt ``InvertedIndex`` to reuse (this package's, or
-            one loaded from the JAX package's ``state_dict``); None → built
-            here.
+            one loaded from the JAX package's ``state_dict``; modes that
+            index); None → built here.
+          items: sampled/sample_verify only — an explicit item-column subset
+            overriding the configured sampler.
 
         Returns a ``DetectionResult`` (numpy fields) over every ordered
         source pair; per-run diagnostics land in ``self.last_stats``.
         """
+        opt = self.options
         if self.mode == "pairwise":
             return pairwise_detect(ds, p_claim, self.cfg, device=self.device)
+        if index is None and self.mode in ("exact", "bound", "bound+",
+                                           "hybrid"):
+            index = self._build_index(ds, p_claim)
         if self.mode == "exact":
-            if index is None:
-                index = self._build_index(ds, p_claim)
             return index_detect_exact(ds, p_claim, self.cfg, index=index)
+        if self.mode in ("bound", "bound+", "hybrid"):
+            l_thr = opt.l_threshold
+            if l_thr is None:
+                l_thr = 16 if self.mode == "hybrid" else 0
+            self.last_stats = {"device": str(self.device)}
+            return bound_detect(
+                ds, p_claim, self.cfg, n_buckets=opt.n_buckets,
+                use_timers=self.mode in ("bound+", "hybrid"),
+                l_threshold=l_thr, rescore_margin=opt.rescore_margin,
+                index=index, device=self.device, stats=self.last_stats)
+        if self.mode == "incremental":
+            self.last_stats = {"device": str(self.device)}
+            if self._inc_state is None:
+                result, self._inc_state = make_incremental_state(
+                    ds, p_claim, self.cfg, n_buckets=opt.n_buckets,
+                    chunk_entries=opt.store_chunk_entries,
+                    chunk_bytes=opt.store_chunk_bytes, index=index,
+                    device=self.device, stats=self.last_stats)
+                return result
+            return incremental_detect(ds, p_claim, self.cfg, self._inc_state,
+                                      rho=opt.rho, rho_acc=opt.rho_acc,
+                                      stats=self.last_stats)
+        if self.mode == "sampled":
+            if items is None:
+                items = self._sample_items(ds)
+            sub = ds.subset_items(items)
+            return self._detect_tiled(sub, p_claim[:, items])
+        if self.mode == "sample_verify":
+            return self._detect_sample_verify(ds, p_claim, items=items)
         return self._detect_tiled(ds, p_claim, index=index)
+
+    def _sample_items(self, ds: ClaimsDataset) -> np.ndarray:
+        opt = self.options
+        if opt.sample_strategy == "item":
+            return sample_by_item(ds, opt.sample_rate, seed=opt.sample_seed)
+        if opt.sample_strategy == "cell":
+            return sample_by_cell(ds, opt.sample_rate, seed=opt.sample_seed)
+        return scale_sample(ds, opt.sample_rate,
+                            min_per_source=opt.min_per_source,
+                            seed=opt.sample_seed)
+
+    # -- sample-then-verify (§VI sampling + exact candidate rescore) --------
+
+    def _detect_sample_verify(
+        self,
+        ds: ClaimsDataset,
+        p_claim: np.ndarray,
+        items: np.ndarray | None = None,
+    ) -> DetectionResult:
+        """SCALESAMPLE for candidate-pair discovery, exact rescore to decide.
+
+        The sampled tiled pass is only a *net*: every pair whose sampled
+        decision margin lands within the recall slack of the copying
+        boundary becomes a candidate, the slack widening until the shell of
+        near-miss pairs thins below ``verify_miss_frac``. Candidates are
+        then rescored exactly on the FULL dataset, so the final decision of
+        every candidate pair equals ``index_detect_exact`` — sampling error
+        survives only as recall loss of the net, never as a wrong decision
+        on a discovered pair.
+        """
+        t0 = time.perf_counter()
+        if items is None:
+            items = self._sample_items(ds)
+        sub = ds.subset_items(items)
+        sampled = self._detect_tiled(sub, p_claim[:, items])
+        return self._sample_verify_finalize(
+            ds, p_claim, items, sampled, self.last_stats,
+            self._last_considered, t0)
+
+    def _sample_verify_finalize(self, ds, p_claim, items, sampled,
+                                sampled_stats, considered_s, t0):
+        """Steps 2+3 of sample_verify, in torch on the engine's device: the
+        recall-slack sweep and the exact candidate rescore.
+        ``considered_s`` is the sampled pass's (S, S) considered set."""
+        cfg, opt, dev = self.cfg, self.options, self.device
+        S = ds.n_sources
+        t_sweep = time.perf_counter()
+
+        # -- 2. recall-slack sweep: widen the candidate net -----------------
+        # z < 0 ⇔ independent; sampling noise can push a true copying pair
+        # below 0, so candidates are all pairs with z ≥ -slack. The sweep
+        # widens slack geometrically until the next shell (-g·slack, -slack]
+        # is nearly empty relative to the net. z in float64, as the JAX
+        # package's numpy computes it.
+        c_s = torch.as_tensor(sampled.c_fwd, device=dev)
+        z = (torch.logaddexp(c_s, c_s.T).double()
+             + np.log(cfg.alpha / cfg.beta))
+        del c_s
+        tri = torch.triu(torch.as_tensor(considered_s, device=dev), 1)
+        slack = float(opt.verify_slack)
+        growth = max(float(opt.verify_slack_growth), 1.0 + 1e-6)
+        z_floor = float(z[tri].min().item()) if bool(tri.any()) else 0.0
+        sweep_rounds = 1
+        while True:
+            cand = tri & (z >= -slack)
+            shell = tri & (z >= -slack * growth) & (z < -slack)
+            n_cand = int(cand.sum().item())
+            n_shell = int(shell.sum().item())
+            del shell
+            if (n_shell <= opt.verify_miss_frac * max(n_cand, 1)
+                    or -slack <= z_floor):
+                break
+            slack *= growth
+            sweep_rounds += 1
+        del z, tri
+
+        # -- 3. exact rescore of only the candidate pairs -------------------
+        t_res = time.perf_counter()
+        pi, pj = torch.nonzero(cand, as_tuple=True)
+        del cand
+        c_fwd = torch.zeros((S, S), dtype=torch.float32, device=dev)
+        vals, p, acc = dataset_tensors(ds, p_claim, dev)
+        rescore_pairs_exact(vals, p, acc, cfg, pi, pj, c_fwd)
+        values_exact = _shared_items(vals >= 0, pi, pj)
+        del vals, p, acc
+        considered = torch.zeros((S, S), dtype=torch.bool, device=dev)
+        considered[pi, pj] = True
+        considered[pj, pi] = True
+
+        copying = decide_copying(c_fwd, c_fwd.T, cfg) & considered
+        pr_ind = torch.where(considered,
+                             posterior_independence(c_fwd, c_fwd.T, cfg), 1.0)
+        pr_ind.fill_diagonal_(1.0)
+        copying.fill_diagonal_(False)
+        self._last_considered = considered     # == the candidate set
+
+        counter = ComputeCounter(
+            pairs_considered=n_cand,
+            shared_values_examined=(
+                sampled.counter.shared_values_examined + values_exact),
+            score_computations=(
+                sampled.counter.score_computations + 2 * values_exact),
+            index_entries=sampled.counter.index_entries,
+        )
+        self.last_stats = {
+            "items_sampled": int(len(items)),
+            "item_rate": round(len(items) / max(ds.n_items, 1), 4),
+            "slack_final": round(slack, 3),
+            "sweep_rounds": sweep_rounds,
+            "candidate_pairs": n_cand,
+            "shell_pairs": n_shell,
+            "sampled_copying_pairs": len(sampled.copying_pairs()),
+            "sampled_stats": sampled_stats,
+            "sweep_s": t_res - t_sweep,
+            "rescore_s": time.perf_counter() - t_res,
+        }
+        return DetectionResult(c_fwd=c_fwd.cpu().numpy(),
+                               pr_independent=pr_ind.cpu().numpy(),
+                               copying=copying.cpu().numpy(), counter=counter,
+                               wall_time_s=time.perf_counter() - t0)
 
     # -- the tiled production path -------------------------------------------
 
@@ -237,15 +526,45 @@ class DetectionEngine:
         # chunk k with some col-block-c source. A tile survives if any NON-Ē
         # chunk keeps it; a surviving tile skips every chunk group whose
         # chunk_keep bits are all off. The keep matrix is symmetric, so only
-        # unordered (r ≤ c) tiles are scheduled.
+        # unordered (r ≤ c) tiles are scheduled. 0/1 products sum exactly in
+        # float32 (widths ≪ 2²⁴).
         keep = np.zeros((n_blocks, n_blocks), bool)
         chunk_keep = np.zeros((K, n_blocks, n_blocks), bool)
-        for k in range(K):
-            # 0/1 products sum exactly in float32 (widths ≪ 2²⁴)
-            g_k = chunk_block_inc(ech.store, k, T, n_blocks).astype(np.float32)
+        base_store = base_idx.store
+        cache = self._mask_cache if index is not None else None
+        mask_source = "fresh"
+        if (cache is not None and cache.matches(base_store, T)
+                and cache.block_inc.shape == (n_blocks,
+                                              base_store.n_entries)):
+            # cache hit: each GATHERED chunk's mask permutes cached base
+            # columns through the gather order — bit-equal to a fresh
+            # reduction of the gathered chunk, with no chunk regathered
+            mask_source = "cache"
+            self._mask_cache_hits += 1
+            masks = (cache.chunk_mask(ech.order[k * b:(k + 1) * b])
+                     for k in range(K))
+        else:
+            masks = (tilecache.chunk_block_inc(ech.store, k, T, n_blocks)
+                     for k in range(K))
+        # detecting against a persistent index, a fresh reduction is adopted
+        # as the new cache at no extra reduction: each gathered chunk's
+        # columns scatter back to base entry order
+        base_inc = None
+        if mask_source == "fresh" and index is not None:
+            base_inc = np.zeros((n_blocks, base_store.n_entries), bool)
+        for k, g_bool in enumerate(masks):
+            if base_inc is not None:
+                sel = ech.order[k * b: k * b + g_bool.shape[1]]
+                live = sel >= 0
+                base_inc[:, sel[live]] = g_bool[:, live]
+            g_k = g_bool.astype(np.float32)
             chunk_keep[k] = (g_k @ g_k.T) > 0
             if k < ech.ebar_chunk:
                 keep |= chunk_keep[k]
+        if base_inc is not None:
+            self._mask_cache = tilecache.BlockOrCache(
+                base_store, T, getattr(base_store, "mseq", -1), base_inc)
+            self._mask_full_builds += 1
         coords = np.ascontiguousarray(np.argwhere(np.triu(keep)),
                                       dtype=np.int32)        # r ≤ c tiles
         tiles_total = n_blocks * (n_blocks + 1) // 2
@@ -263,7 +582,8 @@ class DetectionEngine:
             delta=delta, S=S, T=T, n_blocks=n_blocks, S_pad=S_pad,
             acc_pad=acc_pad, chunk_keep=chunk_keep, coords=coords,
             tiles_total=tiles_total, n_tiles=len(coords), Gc=Gc,
-            chunk_nbytes=chunk_nbytes, index_build_s=index_build_s,
+            chunk_nbytes=chunk_nbytes, mask_source=mask_source,
+            index_build_s=index_build_s,
             prologue_s=time.perf_counter() - t0 - index_build_s)
 
     def _scan_groups(self, ctx: TileScanContext) -> list:
@@ -279,66 +599,103 @@ class DetectionEngine:
                 groups.append((ks, gmask))
         return groups
 
-    def _stage_group(self, ctx: TileScanContext, ks, gmask, host: torch.Tensor):
-        """Kernel operands of one group on the device: the (S_pad, Gc, w)
-        int8 slab (written into the ``host`` buffer — pinned on the card —
-        and copied synchronously), the per-chunk p̂ / δ / non-Ē arrays and
-        the tile list with chunk-pruned tiles marked (-1, -1)."""
-        ech, dev, Gc = ctx.ech, self.device, ctx.Gc
-        slab = host.numpy()
+    def _fill_group(self, ctx: TileScanContext, ks, gmask, slab: torch.Tensor,
+                    meta: torch.Tensor, coords: torch.Tensor) -> None:
+        """Write one group's kernel operands into host tensors: the
+        (S_pad, Gc, w) int8 slab, the (3, Gc) per-chunk p̂ / δ / non-Ē rows
+        (inert 0.5 / 0 / 0 for the slots of a short group) and the tile
+        list with chunk-pruned tiles marked (-1, -1)."""
+        ech = ctx.ech
         for i, k in enumerate(ks):
-            slab[:, i, :] = ech.store.chunks[k]
-        if len(ks) < Gc:
+            slab[:, i, :].copy_(torch.from_numpy(ech.store.chunks[k]))
+        if len(ks) < ctx.Gc:
             slab[:, len(ks):, :] = 0            # inert chunks of a short group
-        p_g = np.full(Gc, 0.5, np.float32)
-        d_g = np.zeros(Gc, np.float32)
-        o_g = np.zeros(Gc, np.float32)
-        p_g[: len(ks)] = ech.p_hat[ks]
-        d_g[: len(ks)] = ctx.delta[ks]
-        o_g[: len(ks)] = ech.nout[ks]
-        coords_g = np.ascontiguousarray(
-            np.where(gmask[:, None], ctx.coords, -1), dtype=np.int32)
-        return (host.to(dev), torch.from_numpy(p_g).to(dev),
-                torch.from_numpy(d_g).to(dev), torch.from_numpy(o_g).to(dev),
-                torch.from_numpy(coords_g).to(dev))
+        meta[0] = 0.5
+        meta[1:] = 0.0
+        meta[0, : len(ks)] = torch.from_numpy(ech.p_hat[ks])
+        meta[1, : len(ks)] = torch.from_numpy(ctx.delta[ks])
+        meta[2, : len(ks)] = torch.from_numpy(ech.nout[ks])
+        coords.copy_(torch.from_numpy(
+            np.where(gmask[:, None], ctx.coords, -1).astype(np.int32)))
+
+    def _stage_group(self, ctx: TileScanContext, ks, gmask):
+        """One group's kernel operands on the device, staged synchronously:
+        (slab, p̂, δ, non-Ē, tile list) — the scan's operands, for checks
+        outside the scan."""
+        slab = torch.empty((ctx.S_pad, ctx.Gc, ctx.ech.width),
+                           dtype=torch.int8)
+        meta = torch.empty((3, ctx.Gc), dtype=torch.float32)
+        coords = torch.empty((ctx.n_tiles, 2), dtype=torch.int32)
+        self._fill_group(ctx, ks, gmask, slab, meta, coords)
+        dev = self.device
+        return (slab.to(dev), meta[0].to(dev), meta[1].to(dev),
+                meta[2].to(dev), coords.to(dev))
 
     def _run_tiled_scan(self, ctx: TileScanContext):
         """Step 3: the tile∘chunk scan — the four (S_pad, S_pad) device
-        grids (C_same→, count, non-Ē count, error bound) + run count."""
+        grids (C_same→, count, non-Ē count, error bound) + run count.
+
+        Groups are staged through a ``SlabRing`` of ``prefetch_depth + 1``
+        slots by the ``ChunkPrefetcher``'s producer, ``prefetch_depth``
+        groups ahead of the kernel.
+        """
         dev = self.device
         T, S_pad, n_tiles = ctx.T, ctx.S_pad, ctx.n_tiles
         K, b = ctx.ech.n_chunks, ctx.ech.width
+        depth = max(int(self.options.prefetch_depth), 0)
         grids = [torch.zeros((S_pad, S_pad), dtype=torch.float32, device=dev)
                  for _ in range(4)]
         t0 = time.perf_counter()
         launches0 = tile_scores.launches
         chunk_tiles_run = 0
         kernel_ms = 0.0
+        pipe = {"staging_s": 0.0, "stage_wait_s": 0.0, "compute_wait_s": 0.0}
         groups = self._scan_groups(ctx) if n_tiles and K else []
         if groups:
             # per-tile accumulators live on the device across groups; one
-            # scatter at the end. Peak resident incidence = one group.
+            # scatter at the end
             stacks = [torch.zeros((n_tiles, T, T), dtype=torch.float32,
                                   device=dev) for _ in range(5)]
             acc = torch.from_numpy(ctx.acc_pad).to(dev)
-            host = torch.empty((S_pad, ctx.Gc, b), dtype=torch.int8,
-                               pin_memory=dev.type == "cuda")
+            # a tile shipped with a group scans ALL the group's chunks, so
+            # count what really runs
+            chunk_tiles_run = sum(int(gm.sum()) * len(ks) for ks, gm in groups)
+            ring = SlabRing(min(depth + 1, len(groups)), (S_pad, ctx.Gc, b),
+                            ctx.Gc, n_tiles, dev)
+
+            def stage(desc):
+                g, ks, gmask = desc
+                slot = g % ring.n
+                ring.acquire(slot)
+                self._fill_group(ctx, ks, gmask, ring.host[slot],
+                                 ring.host_meta[slot], ring.host_coords[slot])
+                ring.upload(slot)
+                return slot
+
             timed = []
-            for ks, gmask in groups:
-                # a tile shipped with a group scans ALL the group's chunks,
-                # so count what really runs
-                chunk_tiles_run += int(gmask.sum()) * len(ks)
-                v, p_g, d_g, o_g, coords_g = self._stage_group(ctx, ks, gmask,
-                                                               host)
-                if dev.type == "cuda":
-                    ev = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                    ev[0].record()
-                group_tile_scores(v, acc, p_g, d_g, o_g, coords_g, stacks,
-                                  self.cfg, tile=T)
-                if dev.type == "cuda":
-                    ev[1].record()
-                    timed.append(ev)
+            pf = ChunkPrefetcher([(g, ks, gm) for g, (ks, gm)
+                                  in enumerate(groups)], stage, depth=depth)
+            try:
+                for slot in pf:
+                    v, meta, coords_g = ring.use(slot)
+                    if dev.type == "cuda":
+                        ev = (torch.cuda.Event(enable_timing=True),
+                              torch.cuda.Event(enable_timing=True))
+                        ev[0].record()
+                    group_tile_scores(v, acc, meta[0], meta[1], meta[2],
+                                      coords_g, stacks, self.cfg, tile=T)
+                    if dev.type == "cuda":
+                        ev[1].record()
+                        timed.append(ev)
+                    ring.release(slot)
+            finally:
+                ring.close()
+                pf.close()
+                # a producer blocked on a slot still in use waited for the
+                # kernel, not on staging
+                pipe = {"staging_s": pf.staging_s - ring.slot_wait_s,
+                        "stage_wait_s": pf.stage_wait_s,
+                        "compute_wait_s": pf.compute_wait_s + ring.slot_wait_s}
             if timed:
                 torch.cuda.synchronize(dev)
                 kernel_ms = sum(a.elapsed_time(z) for a, z in timed)
@@ -349,7 +706,7 @@ class DetectionEngine:
         self._scan_stats = {"groups_run": len(groups),
                             "kernel_launches": tile_scores.launches - launches0,
                             "scan_s": time.perf_counter() - t0,
-                            "scan_kernel_ms": kernel_ms}
+                            "scan_kernel_ms": kernel_ms, **pipe}
         return grids, chunk_tiles_run
 
     def _tiled_finalize(self, ctx: TileScanContext, grids,
@@ -383,11 +740,8 @@ class DetectionEngine:
         del z
         pi, pj = torch.nonzero(torch.triu(near, 1), as_tuple=True)
         del near
-        vals = torch.as_tensor(ds.values, device=dev)
-        p = torch.as_tensor(np.asarray(ctx.p_claim, np.float32), device=dev)
-        acc = torch.as_tensor(ds.accuracy, dtype=torch.float32, device=dev)
-        n_rescored = rescore_pairs_exact(vals, p, acc, cfg, pi, pj, c_fwd)
-        del vals, p
+        n_rescored = rescore_pairs_exact(*dataset_tensors(ds, ctx.p_claim, dev),
+                                         cfg, pi, pj, c_fwd)
         rescore_s = time.perf_counter() - t_res
 
         pr_ind = posterior_independence(c_fwd, c_fwd.T, cfg)
@@ -395,6 +749,7 @@ class DetectionEngine:
         pr_ind = torch.where(considered, pr_ind, 1.0)
         pr_ind.fill_diagonal_(1.0)
         copying.fill_diagonal_(False)
+        self._last_considered = considered
 
         # semantic (paper-metric) accounting, identical to the exact INDEX
         upper = torch.triu(considered, 1)
@@ -426,9 +781,19 @@ class DetectionEngine:
             "chunk_tiles_total": ech.n_chunks * ctx.n_tiles,
             "chunk_tiles_run": chunk_tiles_run,
             "peak_group_bytes": int(ctx.Gc * ctx.chunk_nbytes),
-            "mask_source": "fresh",
             "groups_run": scan.get("groups_run", 0),
             "kernel_launches": scan.get("kernel_launches", 0),
+            # async staging pipeline
+            "prefetch_depth": int(opt.prefetch_depth),
+            "staging_s": scan.get("staging_s", 0.0),
+            "stage_wait_s": scan.get("stage_wait_s", 0.0),
+            "compute_wait_s": scan.get("compute_wait_s", 0.0),
+            # incremental tile-prune mask cache
+            "mask_source": ctx.mask_source,
+            "mask_cache_hits": self._mask_cache_hits,
+            "mask_full_builds": self._mask_full_builds,
+            "mask_blocks_updated": (self._mask_cache.blocks_updated
+                                    if self._mask_cache is not None else 0),
             "index_build_s": ctx.index_build_s,
             "prologue_s": ctx.prologue_s,
             "scan_s": scan.get("scan_s", 0.0),
@@ -437,6 +802,20 @@ class DetectionEngine:
             "finalize_s": time.perf_counter() - t_fin,
         }
         return result
+
+
+def _shared_items(prov: torch.Tensor, pi: torch.Tensor,
+                  pj: torch.Tensor) -> int:
+    """Σ over the pairs (pi, pj) of the items both sources provide, from the
+    (S, D) bool provision matrix, in batches of at most
+    ``PAIR_BATCH_ELEMENTS`` pair-items."""
+    D = prov.shape[1]
+    step = max(1, PAIR_BATCH_ELEMENTS // max(D, 1))
+    total = 0
+    for b0 in range(0, len(pi), step):
+        both = prov[pi[b0: b0 + step]] & prov[pj[b0: b0 + step]]
+        total += int(both.sum(dtype=torch.int64).item())
+    return total
 
 
 __all__ = ["DetectionEngine", "EngineOptions", "MODES", "TileScanContext"]

@@ -41,6 +41,7 @@ from repro_torch.core.store import (
     DEFAULT_CHUNK_ENTRIES,
     CorpusStore,
     StoreSnapshot,
+    _nonzero_2d,
     align_chunk,
 )
 from repro_torch.core.types import (
@@ -207,20 +208,18 @@ def entry_extreme_accuracies(
     V, acc: np.ndarray, chunk: int = 4096
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-entry (min, second-min, max) provider accuracies from the
-    incidence: a ``CorpusStore`` (iterated chunk by chunk) or a dense
-    array (``chunk`` entries at a time), to bound peak memory. An entry
-    with one provider gets its minimum as its second minimum."""
+    incidence: a ``CorpusStore`` (its nonzero cells, chunk by chunk) or a
+    dense array (``chunk`` entries at a time), to bound peak memory. An
+    entry with one provider gets its minimum as its second minimum; one
+    without providers gets (inf, inf, −inf)."""
     if isinstance(V, CorpusStore):
-        E = V.n_entries
-        blocks = ((ch.start, ch.V) for ch in V.iter_chunks())
-    else:
-        E = V.shape[1]
-        blocks = ((s0, V[:, s0: s0 + chunk]) for s0 in range(0, E, chunk))
+        return _store_extreme_accuracies(V, acc)
+    E = V.shape[1]
     a_min = np.empty(E, np.float64)
     a_second = np.empty(E, np.float64)
     a_max = np.empty(E, np.float64)
-    for s0, blk in blocks:
-        member = blk.astype(bool).T                        # (w, S)
+    for s0 in range(0, E, chunk):
+        member = V[:, s0: s0 + chunk].astype(bool).T       # (w, S)
         a = np.where(member, acc[None, :], np.inf)
         sl = slice(s0, s0 + member.shape[0])
         a_min[sl] = a.min(axis=1)
@@ -228,6 +227,30 @@ def entry_extreme_accuracies(
         a_second[sl] = a.min(axis=1)
         a_max[sl] = np.where(member, acc[None, :], -np.inf).max(axis=1)
     a_second = np.where(np.isfinite(a_second), a_second, a_min)
+    return a_min, a_second, a_max
+
+
+def _store_extreme_accuracies(store: CorpusStore, acc: np.ndarray) -> tuple:
+    """``entry_extreme_accuracies`` of a store from its nonzero cells: the
+    providers of each column sorted by accuracy, first, second and last —
+    the same selections as the dense form, in O(claims) instead of O(S·E)."""
+    E = store.n_entries
+    a_min = np.full(E, np.inf)
+    a_second = np.full(E, np.inf)
+    a_max = np.full(E, -np.inf)
+    for ch in store.iter_chunks():
+        rows, cols = _nonzero_2d(np.ascontiguousarray(ch.V))
+        if not len(rows):
+            continue
+        a = acc[rows]
+        order = np.lexsort((a, cols))
+        cols, a = cols[order], a[order]
+        first = np.flatnonzero(np.r_[True, cols[1:] != cols[:-1]])
+        last = np.r_[first[1:], len(cols)] - 1
+        col = ch.start + cols[first]
+        a_min[col] = a[first]
+        a_second[col] = a[np.minimum(first + 1, last)]
+        a_max[col] = a[last]
     return a_min, a_second, a_max
 
 
@@ -386,8 +409,8 @@ class MutationDelta:
     ``row_start`` upward and zeroes the ``gc_entries`` columns.
     ``from_mseq``/``to_mseq`` are the store's membership-state identities
     before and after; ``full=True`` (compaction ran) means the delta cannot
-    describe the change. The block-OR cache that consumes it is not carried
-    yet (ROADMAP A9); the receipts carry it all the same.
+    describe the change. ``DetectionEngine.apply_mask_delta`` feeds it to
+    the engine's block-OR mask cache (``core/tilecache.py``).
     """
 
     kind: str                      # "commit" | "retract"

@@ -139,11 +139,38 @@ def test_default_device_is_the_card():
             DetectionEngine(CFG)
 
 
-@pytest.mark.parametrize("mode", ["bound", "bound+", "hybrid", "incremental",
+@pytest.mark.parametrize("mode", ["pairwise", "exact", "bucketed", "bound",
+                                  "bound+", "hybrid", "incremental",
                                   "sampled", "sample_verify"])
-def test_unported_modes_raise(mode):
-    with pytest.raises(NotImplementedError, match="A8"):
-        DetectionEngine(CFG, mode=mode, device="cpu")
+def test_every_mode_runs_on_cpu(worlds, mode):
+    """Each of the nine modes runs on the CPU; the non-sampled ones decide
+    like the JAX engine on the motivating example (the sampled ones keep
+    the items the sample holds, so they are held in
+    tests/test_torch_sampling.py)."""
+    from repro_torch.core.engine import MODES
+    assert mode in MODES
+    ds, p, _ = worlds["motivating"]
+    eng = DetectionEngine(CFG, mode=mode, tile=64, n_buckets=13, device="cpu")
+    res = eng.detect(_port(ds), p)
+    S = ds.n_sources
+    assert res.copying.shape == res.c_fwd.shape == (S, S)
+    assert np.isfinite(res.c_fwd).all() and not res.copying.diagonal().any()
+    if mode not in ("sampled", "sample_verify", "bucketed"):
+        want = JEngine(CFG_J, mode=mode, tile=64, n_buckets=13).detect(ds, p)
+        np.testing.assert_array_equal(res.copying, want.copying)
+    if mode in ("bucketed", "sampled", "sample_verify"):
+        assert eng._last_considered is not None
+
+
+def test_engine_options_defaults_equal_jax():
+    """Every option the port carries has the JAX engine's default."""
+    import dataclasses
+
+    from repro.core.engine import EngineOptions as JOptions
+    from repro_torch.core import EngineOptions
+    jdefaults = {f.name: f.default for f in dataclasses.fields(JOptions)}
+    for f in dataclasses.fields(EngineOptions):
+        assert f.default == jdefaults[f.name], f.name
 
 
 def test_unknown_mode_and_dtype_raise():
