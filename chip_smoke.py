@@ -8,12 +8,13 @@ Drives the port's paths on the card — the detection pass
 engine's other modes (``bound``, ``bound+``, ``hybrid``, ``incremental``,
 ``sampled``, ``sample_verify``), the
 full-square and per-tile copyscore (``repro_torch.kernels.ops.copyscore_store``,
-``copyscore_tile``) and the index's commit/retract path, the LM serving
-path ``repro_torch.models.Model.prefill`` with
+``copyscore_tile``), the index's commit/retract path, the row-range shard
+plane with the engine's shard-owner fan-out, the LM serving path
+``repro_torch.models.Model.prefill`` with
 ``repro_torch.runtime.ServeLoop``, and the LM training path
 ``repro_torch.runtime.train`` — and checks them phase by phase; any
-failure exits non-zero. Phases 13–17 run right after phase 6, while the
-full pass's store is still in memory; then phases 7–12. Phases:
+failure exits non-zero. Phases 18 and 13–17 run right after phase 6, while
+the full pass's store is still in memory; then phases 7–12. Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build every kernel under ``src/repro_torch/kernels/csrc`` from the
@@ -138,7 +139,19 @@ full pass's store is still in memory; then phases 7–12. Phases:
      0.1 (SCALESAMPLE): B1's launches on the sampled pass, every candidate
      deciding as phase 5 does and no pair outside the candidates copying,
      the candidates, sweep rounds, recall of phase 5's copying pairs and
-     the seconds of each stage.
+     the seconds of each stage;
+ 18. the row-range shard plane on phase 5's corpus: (a) its own index,
+     built with the streaming seal (4 owners, bitpacked, spilled under a cap
+     of half an owner's packed slice in a temporary directory), the owner
+     fan-out (``owner_scan_context``, four ``detect_owner_partial``,
+     ``merge_owner_partials``) with the tile list and the four merged grids
+     equal to phase 5's unsharded scan bit for bit; (b) every owner's peak
+     resident bytes below a quarter of the unsharded stores'; (c) the index
+     build, the owner scans, the staging, the stage waits and the merge in
+     seconds, B1's launches and device ms on the path, the spill traffic
+     and the peak device memory; (d) at S=2048 under the same options, all
+     nine modes with 2 and 4 shards deciding like the unsharded card run,
+     and ``bucketed`` like the exact INDEX.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -1527,6 +1540,180 @@ def phase_slice(torch, np, dev, ops, cfg, ds, p, index, copying5) -> None:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
+# the shard plane (phase 18): owners, and the spill cap as a fraction of the
+# packed scan store (half of each owner's packed slice: under a quarter of
+# the packed bytes, so blocks spill and reload)
+SHARD_OWNERS = 4
+SHARD_CAP_OF_PACKED = 1 / 8
+
+
+def _shard_options(cap: int, spill_dir: str, n_shards: int = SHARD_OWNERS):
+    """The engine options of phase 18's sharded runs."""
+    return dict(n_shards=n_shards, shard_pack=True, shard_spill_bytes=cap,
+                shard_spill_dir=spill_dir)
+
+
+def phase_shards(torch, np, dev, ops, cfg, ds, p, ctx5, grids5) -> dict:
+    """Phase 18: the row-range shard plane at the full pass's width.
+
+    (a) The owner fan-out on phase 5's corpus, on its own index built with
+    the streaming seal (4 owners, bitpacked, spilled under a cap of half of
+    each owner's packed slice, in a temporary directory):
+    ``owner_scan_context``, four ``detect_owner_partial`` and
+    ``merge_owner_partials``; the tile list and the four grids equal phase
+    5's unsharded scan (``grids5``, over the prologue ``ctx5``) bit for bit.
+    (b) Every owner's peak resident bytes, of the index store and of the
+    scan store, below a quarter of the unsharded stores'. (c) Seconds of
+    each stage, B1's launches and device ms, the spill traffic and the peak
+    device memory. (d) At S=2048 under the same options, all nine modes
+    with 2 and 4 shards decide like the unsharded card run, and
+    ``bucketed`` like ``index_detect_exact``. Returns B1's record on this
+    path: launches and device ms.
+    """
+    import tempfile
+
+    from repro_torch.core import DetectionEngine, merge_owner_partials
+
+    K, w = ctx5.ech.n_chunks, ctx5.ech.width
+    unsharded = ctx5.S_pad * K * w              # phase 5's scan store, int8
+    index_bytes = ds.n_sources * ctx5.base_idx.store.n_entries
+    packed = ctx5.S_pad * K * (-(-w // 8))
+    cap = int(packed * SHARD_CAP_OF_PACKED)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="cd-phase18-") as spill:
+        eng = DetectionEngine(cfg, **_shard_options(cap, spill))
+        ops.tile_scores.launches = 0          # count this path's launches
+        t0 = time.perf_counter()
+        ctx = eng.owner_scan_context(ds, p)
+        ctx_s = time.perf_counter() - t0
+        parts = [eng.detect_owner_partial(ds, p, s, ctx=ctx)
+                 for s in range(SHARD_OWNERS)]
+        t1 = time.perf_counter()
+        grids = merge_owner_partials(parts, ctx.n_blocks, ctx.T)
+        torch.cuda.synchronize()
+        merge_s = time.perf_counter() - t1
+        launches = ops.tile_scores.launches
+        total_s = time.perf_counter() - t0
+        groups = sum(q.stats.get("groups_run", 0) for q in parts)
+        if launches <= 0 or launches != groups:
+            raise AssertionError(f"phase 18: B1 launches {launches} != the "
+                                 f"owners' groups {groups}")
+        if not np.array_equal(ctx.coords, ctx5.coords):
+            raise AssertionError("phase 18: the sharded prologue's tile list "
+                                 "differs from phase 5's")
+        owned = np.concatenate([q.coords for q in parts])
+        if len(owned) != len(ctx.coords) or len(
+                {tuple(c) for c in owned.tolist()}) != len(ctx.coords):
+            raise AssertionError("phase 18: the owners' tiles do not "
+                                 "partition the tile list")
+        for name, a, b in zip(("C_same", "count", "non-Ē count",
+                               "error bound"), grids5, grids):
+            if not torch.equal(a, b):
+                raise AssertionError(f"phase 18: the merged {name} grid "
+                                     f"differs from phase 5's scan")
+        scan = ctx.ech.store
+        base = ctx.base_idx.store
+        peak_scan = max(scan.shard_peak_bytes())
+        peak_base = max(base.shard_peak_bytes())
+        if peak_scan >= unsharded / SHARD_OWNERS or (
+                peak_base >= index_bytes / SHARD_OWNERS):
+            raise AssertionError(
+                f"phase 18: an owner's peak resident bytes (scan store "
+                f"{peak_scan}, index store {peak_base}) reach a quarter of "
+                f"the unsharded stores' ({unsharded}, {index_bytes})")
+        kernel_ms = sum(q.stats.get("scan_kernel_ms", 0.0) for q in parts)
+        spill_b, spill_s = base.spill_stats(), scan.spill_stats()
+        log(f"[18a] S={ds.n_sources}, {SHARD_OWNERS} owners, packed, spill "
+            f"cap {cap} B an owner ({packed} B packed, {unsharded} B "
+            f"unsharded int8): the tile list ({len(ctx.coords)} tiles) and "
+            f"the four merged grids == phase 5's scan, bit for bit")
+        log(f"[18b] peak resident bytes an owner: index store "
+            f"{base.shard_peak_bytes()} (bar {index_bytes // SHARD_OWNERS}), "
+            f"scan store {scan.shard_peak_bytes()} (bar "
+            f"{unsharded // SHARD_OWNERS})")
+        log(f"[18c] seconds: index build with the streaming seal "
+            f"{ctx.index_build_s:.3f}, prologue {ctx.prologue_s:.3f}, owner "
+            f"scans {[round(q.stats.get('scan_s', 0.0), 3) for q in parts]} (staging "
+            f"{sum(q.stats.get('staging_s', 0.0) for q in parts):.3f}, "
+            f"stage wait "
+            f"{sum(q.stats.get('stage_wait_s', 0.0) for q in parts):.3f}, "
+            f"compute wait "
+            f"{sum(q.stats.get('compute_wait_s', 0.0) for q in parts):.3f}), "
+            f"merge {merge_s:.3f}; context {ctx_s:.3f}, total {total_s:.3f}")
+        log(f"[18c] B1 on the sharded path: {launches} launches (groups an "
+            f"owner {[q.stats.get('groups_run', 0) for q in parts]}, slab "
+            f"rows {[q.stats.get('slab_rows', 0) for q in parts]}), device "
+            f"{kernel_ms:.3f} ms; phase 5: {ctx5.ech.n_chunks} groups over "
+            f"{ctx5.S_pad} rows")
+        log(f"[18c] spill: index store {spill_b}, scan store {spill_s}; peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+            f"GiB")
+        del parts, grids, ctx, scan, base, eng
+        gc.collect()
+    torch.cuda.empty_cache()
+    phase_shard_modes(torch, np, dev, cfg)
+    return {"launches": launches, "device_ms": kernel_ms}
+
+
+def phase_shard_modes(torch, np, dev, cfg) -> None:
+    """Phase 18d: at S=2048, every mode with 2 and 4 shards (bitpacked,
+    spilled under the phase's cap) decides like the unsharded card run, and
+    ``bucketed`` like ``index_detect_exact``."""
+    import tempfile
+
+    from repro_torch.core import (
+        DetectionEngine,
+        build_index,
+        index_detect_exact,
+    )
+    from repro_torch.core.engine import MODES
+    from repro_torch.data.claims import (
+        SyntheticSpec,
+        oracle_claim_probs,
+        synthetic_claims,
+    )
+
+    sc = synthetic_claims(SyntheticSpec(**WORLD_2048))
+    ds, p = sc.dataset, oracle_claim_probs(sc)
+    exact = index_detect_exact(ds, p, cfg,
+                               index=build_index(ds, p, cfg, device=dev))
+    seconds = {}
+    cap = None
+    # bucketed first: its scan store sizes the spill cap
+    for mode in ("bucketed",) + tuple(m for m in MODES if m != "bucketed"):
+        t0 = time.perf_counter()
+        eng = DetectionEngine(cfg, mode=mode)
+        ref = eng.detect(ds, p)
+        seconds[mode] = [time.perf_counter() - t0]
+        if mode == "bucketed":
+            st = eng.last_stats
+            S_pad = -(-ds.n_sources // st["tile"]) * st["tile"]
+            packed = S_pad * st["chunks"] * (-(-st["chunk_width"] // 8))
+            cap = int(packed * SHARD_CAP_OF_PACKED)
+            if not np.array_equal(ref.copying, exact.copying):
+                raise AssertionError("S=2048 bucketed: decisions != exact")
+        for n in (2, 4):
+            with tempfile.TemporaryDirectory(prefix="cd-phase18-") as spill:
+                t0 = time.perf_counter()
+                res = DetectionEngine(cfg, mode=mode, **_shard_options(
+                    cap, spill, n)).detect(ds, p)
+                seconds[mode].append(time.perf_counter() - t0)
+            if not np.array_equal(res.copying, ref.copying):
+                raise AssertionError(f"S=2048 {mode}, {n} shards: decisions "
+                                     f"differ from the unsharded run")
+            if mode == "bucketed" and not np.array_equal(res.copying,
+                                                         exact.copying):
+                raise AssertionError(f"S=2048 bucketed, {n} shards: "
+                                     f"decisions != exact INDEX")
+    log(f"[18d] S={ds.n_sources}, 2 and 4 shards, packed, spill cap {cap} "
+        f"B: all nine modes decide like the unsharded card run, bucketed "
+        f"like the exact "
+        f"INDEX ({len(exact.copying_pairs())} copying pairs); seconds "
+        f"(unsharded, 2, 4 shards): " + "; ".join(
+            f"{m} " + "/".join(f"{x:.2f}" for x in v)
+            for m, v in seconds.items()))
+
+
 def _pairs_of(np, copying):
     """The unordered copying pairs (i < j) of a decision matrix."""
     i, j = np.nonzero(np.triu(copying, 1))
@@ -1919,8 +2106,18 @@ def main() -> int:
             raise AssertionError("a timing is not a positive number")
     b1 = {"launches": launches, "max_abs_err": worst, "ms": ms,
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    b1_pass = launches
     del (groups, acc, v, p_g, d_g, o_g, coords_g, stacks, args, v2,
          ds512, idx512, idx2k, p512, p2k, exact)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 18. the row-range shard plane at the full pass's width -------------
+    # phase 5's scan, rerun on its prologue, stays on the card for the
+    # comparison with the owners' merge
+    grids5, _ = eng._run_tiled_scan(ctx)
+    sharded = phase_shards(torch, np, dev, ops, cfg, ds, p, ctx, grids5)
+    del grids5
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1987,6 +2184,10 @@ def main() -> int:
         "max_abs_err": max(rec["max_abs_err"], worst_single[name]),
         "library_ms": None,
     } for name, line, rec in (("copyscore_err", 89, b2), ("copyscore", 67, b3))]
+    # B1's launches: the full pass's and the sharded fan-out's, added
+    b1["launches"] = b1_pass + sharded["launches"]
+    b1["launches_by_path"] = {"bucketed pass (phase 5)": b1_pass,
+                              "owner fan-out (phase 18)": sharded["launches"]}
     record = {"kernels": [{
         "name": "copyscore_fused",
         "route": "cuda",

@@ -20,6 +20,14 @@ Public API (the slice ported so far):
   bucketed_index_detect, pad_buckets            — bucketed INDEX (compat)
   rescore_pairs_exact                           — exact pair rescore
   CorpusStore, StoreSnapshot                    — chunked incidence store
+  PackedBlock, pack_membership,
+  unpack_membership, packed_count_matmul        — 1-bit membership
+  ShardPlan, ShardedCorpusStore, shard_store    — row-range-sharded corpus
+  make_shard_plan, rebalance_plan,
+  merge_shard_partials, merge_owner_partials,
+  OwnerPartial                                  — shard plans and merges
+  ShardScanError, SpillCorruptionError,
+  SealedShardError                              — shard-plane faults
 """
 from repro_torch.core.bound import BoundState, bound_detect, hybrid_detect
 from repro_torch.core.bucketed import (
@@ -53,7 +61,27 @@ from repro_torch.core.index import (
 from repro_torch.core.pipeline import ChunkPrefetcher, PipelineStageError
 from repro_torch.core.sampling import sample_by_cell, sample_by_item, scale_sample
 from repro_torch.core.scoring import pairwise_detect
-from repro_torch.core.store import CorpusStore, StoreSnapshot
+from repro_torch.core.shardplan import (
+    OwnerPartial,
+    SealedShardError,
+    ShardedCorpusStore,
+    ShardPlan,
+    ShardScanError,
+    SpillCorruptionError,
+    make_shard_plan,
+    merge_owner_partials,
+    merge_shard_partials,
+    rebalance_plan,
+    shard_store,
+)
+from repro_torch.core.store import (
+    CorpusStore,
+    PackedBlock,
+    StoreSnapshot,
+    pack_membership,
+    packed_count_matmul,
+    unpack_membership,
+)
 from repro_torch.core.tilecache import BlockOrCache
 from repro_torch.core.types import (
     ClaimsDataset,
@@ -74,5 +102,10 @@ __all__ = [
     "bucketed_index_detect", "pad_buckets", "BoundState", "bound_detect",
     "hybrid_detect", "IncrementalState", "make_incremental_state",
     "incremental_detect", "sample_by_item", "sample_by_cell", "scale_sample",
-    "BlockOrCache", "ChunkPrefetcher", "PipelineStageError",
+    "BlockOrCache", "ChunkPrefetcher", "PipelineStageError", "PackedBlock",
+    "pack_membership", "unpack_membership", "packed_count_matmul",
+    "ShardPlan", "ShardedCorpusStore", "shard_store", "make_shard_plan",
+    "rebalance_plan", "merge_shard_partials", "merge_owner_partials",
+    "OwnerPartial", "ShardScanError", "SpillCorruptionError",
+    "SealedShardError",
 ]

@@ -48,6 +48,7 @@ from repro_torch.core.scoring import (
     posterior_independence,
     score_same,
 )
+from repro_torch.core.store import CorpusStore
 from repro_torch.core.types import ClaimsDataset, CopyConfig, DetectionResult
 from repro_torch.utils.counters import ComputeCounter
 from repro_torch.utils.device import resolve_device
@@ -252,12 +253,15 @@ def _stage_columns(store, e0: int, e1: int, rows: int, dev: torch.device,
     cw = store.chunk_entries
     for c in range(e0 // cw, min(-(-e1 // cw), store.n_chunks)):
         s0 = store.chunk_start(c)
-        lo, hi = max(e0, s0), min(e1, s0 + store.chunks[c].shape[1])
+        lo, hi = max(e0, s0), min(e1, s0 + store.chunk_width(c))
         if lo >= hi:
             continue
         if staged.get("chunk") != c:
             staged["chunk"] = c
-            staged["block"] = torch.from_numpy(store.chunks[c][:S]).to(dev)
+            # a sharded store assembles the chunk's rows through its facade
+            blk = (store.chunks[c][:S] if isinstance(store, CorpusStore)
+                   else store.assemble_rows(c, 0, S))
+            staged["block"] = torch.from_numpy(blk).to(dev)
         v[:S, lo - e0: hi - e0] = staged["block"][:, lo - s0: hi - s0]
     return v
 

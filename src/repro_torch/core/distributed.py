@@ -4,9 +4,10 @@ The JAX package's ``sharded_tile_scores`` round-robins the surviving pair
 tiles over a 1-D device mesh with ``shard_map``; each device scans its tiles
 with ``lax.scan`` and skips ``(-1, -1)`` slots with ``lax.cond``. On one
 card that becomes one kernel launch per chunk group over the whole surviving
-coordinate list, the kernel itself returning at once on a ``(-1, -1)`` slot.
-The multi-card planes (the mesh, the 2-D ``data``×``pod`` scan) are not
-carried yet (ROADMAP A10).
+coordinate list (or one shard owner's part of it, ``core/engine.py``), the
+kernel itself returning at once on a ``(-1, -1)`` slot. Only the multi-card
+mesh waits (ROADMAP A.3b): the 1-D tile mesh over several cards, the 2-D
+``data``×``pod`` scan and ``distributed_pair_scores``.
 """
 from __future__ import annotations
 

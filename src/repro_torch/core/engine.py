@@ -39,8 +39,20 @@ Modes
                 only the candidate pairs — decisions on the candidate set
                 equal ``index_detect_exact``
 
-The multi-device and shard-owner planes of the JAX engine (``devices``,
-``n_shards``, ``mesh_shape`` and the owner fan-out) are not carried.
+Row-range shards (``n_shards`` > 1): indexes the engine builds are wrapped
+in a ``ShardedCorpusStore`` (``core/shardplan.py``), which every mode reads
+through. For the tiled modes the engine store is sealed for the scan —
+bitpacked with ``shard_pack``, under a per-shard LRU byte cap that spills
+cold blocks with ``shard_spill_bytes`` — and each shard owner scans only the
+surviving tiles whose row block it owns, over a compact slab of the row
+blocks those tiles touch; the owners' tile stacks stay on the device and
+are scattered once into the grids. Per-tile kernel operands equal the
+unsharded scan's, so at equal chunk groups the grids are bit-equal, and
+decisions equal the unsharded engine's. ``owner_scan_context`` /
+``detect_owner_partial`` / ``finalize_owner_partials`` split that scan into
+one call per owner and a merge (the fan-out a shard-owner router drives).
+The multi-card tile mesh of the JAX engine (``devices``, ``mesh_shape``) is
+not carried yet (ROADMAP A.3b).
 """
 from __future__ import annotations
 
@@ -62,7 +74,11 @@ from repro_torch.core.incremental import (
     rescore_pairs_exact,
 )
 from repro_torch.core.index import InvertedIndex, build_index, engine_chunks
-from repro_torch.core.pipeline import ChunkPrefetcher, SlabRing
+from repro_torch.core.pipeline import (
+    ChunkPrefetcher,
+    PipelineStageError,
+    SlabRing,
+)
 from repro_torch.core.sampling import sample_by_cell, sample_by_item, scale_sample
 from repro_torch.core.scoring import (
     PAIR_BATCH_ELEMENTS,
@@ -71,7 +87,16 @@ from repro_torch.core.scoring import (
     pairwise_detect,
     posterior_independence,
 )
-from repro_torch.core.shardplan import scatter_tile_stacks
+from repro_torch.core.shardplan import (
+    OwnerPartial,
+    ShardedCorpusStore,
+    ShardScanError,
+    make_shard_plan,
+    merge_owner_partials,
+    scatter_tile_stacks,
+    shard_store,
+)
+from repro_torch.core.store import CorpusStore
 from repro_torch.core.types import ClaimsDataset, CopyConfig, DetectionResult
 from repro_torch.kernels.ops import tile_scores
 from repro_torch.utils.counters import ComputeCounter
@@ -146,6 +171,21 @@ class EngineOptions:
     # consumer's thread between launches; stall telemetry (stage_wait_s /
     # compute_wait_s) lands in last_stats either way.
     prefetch_depth: int = 2
+    # row-range shards of the corpus data plane (count). None/1 → unsharded.
+    # Indexes this engine builds are wrapped in a ShardedCorpusStore; each
+    # shard owner scans only the pair tiles whose ROW block it owns, and the
+    # owners' tiles merge into decisions equal to the unsharded engine's.
+    n_shards: Optional[int] = None
+    # bitpack each shard's blocks of the scan store to 1 bit/entry (8× over
+    # int8; unpacked on the host as each slab is assembled).
+    shard_pack: bool = False
+    # per-shard resident-set byte cap of the sealed stores (bytes): cold
+    # blocks spill to checksummed frames under shard_spill_dir, LRU.
+    # None → no cap.
+    shard_spill_bytes: Optional[int] = None
+    # directory under which each sealed store spills (in a fresh
+    # subdirectory of its own); None → the system temp directory.
+    shard_spill_dir: Optional[str] = None
 
 
 @dataclass
@@ -173,6 +213,9 @@ class TileScanContext:
     mask_source: str = "fresh"     # tile masks from the cache or a fresh reduction
     index_build_s: float = 0.0     # host seconds building the index (0 if given)
     prologue_s: float = 0.0        # host seconds of the rest of the prologue
+    sharded: bool = False          # the scan store is a ShardedCorpusStore
+    resident_nbytes: int = 0       # one chunk's resident bytes (packed: 1 bit)
+    items: Optional[np.ndarray] = None  # sampled modes' item subset (fan-out)
 
 
 class DetectionEngine:
@@ -324,6 +367,8 @@ class DetectionEngine:
         if self.mode == "incremental":
             self.last_stats = {"device": str(self.device)}
             if self._inc_state is None:
+                if index is None and opt.n_shards and opt.n_shards > 1:
+                    index = self._build_index(ds, p_claim)
                 result, self._inc_state = make_incremental_state(
                     ds, p_claim, self.cfg, n_buckets=opt.n_buckets,
                     chunk_entries=opt.store_chunk_entries,
@@ -464,14 +509,38 @@ class DetectionEngine:
 
     # -- the tiled production path -------------------------------------------
 
-    def _build_index(self, ds: ClaimsDataset,
-                     p_claim: np.ndarray) -> InvertedIndex:
-        """Build an index honoring this engine's store-chunking options."""
+    def _build_index(self, ds: ClaimsDataset, p_claim: np.ndarray,
+                     streaming: bool = False) -> InvertedIndex:
+        """Build an index honoring this engine's store-chunking options.
+
+        With ``n_shards`` > 1 the store is wrapped in a ``ShardedCorpusStore``
+        under a balanced row-range plan. ``streaming=True`` (the one-shot
+        tiled path) streams the seal through the wrap when pack/spill
+        options are set: blocks bitpack and spill under the cap as they are
+        sliced, and the source chunks are released behind the slicing. The
+        other modes keep the dense wrap (a sealed store refuses commits).
+        """
         opt = self.options
-        return build_index(ds, p_claim, self.cfg,
-                           chunk_entries=opt.store_chunk_entries,
-                           chunk_bytes=opt.store_chunk_bytes,
-                           device=self.device)
+        idx = build_index(ds, p_claim, self.cfg,
+                          chunk_entries=opt.store_chunk_entries,
+                          chunk_bytes=opt.store_chunk_bytes,
+                          device=self.device)
+        if opt.n_shards and opt.n_shards > 1:
+            plan = make_shard_plan(idx.store.n_rows, opt.n_shards)
+            if streaming and self._shard_seal():
+                idx.store = shard_store(idx.store, plan, consume=True,
+                                        **self._shard_seal())
+            else:
+                idx.store = shard_store(idx.store, plan)
+        return idx
+
+    def _shard_seal(self) -> Optional[dict]:
+        """The seal options of sharded scan stores, or None (no seal)."""
+        opt = self.options
+        if not (opt.shard_pack or opt.shard_spill_bytes is not None):
+            return None
+        return dict(pack=opt.shard_pack, spill_dir=opt.shard_spill_dir,
+                    resident_bytes=opt.shard_spill_bytes)
 
     def _tile_edge(self, s_sources: int) -> int:
         """Tile edge: the smallest multiple of 8 that is ≥ min(S, requested
@@ -505,16 +574,20 @@ class DetectionEngine:
         base_idx = index
         index_build_s = 0.0
         if base_idx is None:
-            base_idx = self._build_index(ds, p_claim)
+            base_idx = self._build_index(ds, p_claim, streaming=True)
             index_build_s = time.perf_counter() - t0
         itemsize = 1                                # int8 incidence
         # p-ordered, region-padded, uniform-width chunk store; rows carry the
         # tile-grid padding so chunks slice straight into pair tiles. The
         # byte budget caps the chunk width so even ONE shipped chunk
-        # respects it (floored at 8 entries inside engine_chunks).
+        # respects it (floored at 8 entries inside engine_chunks). A sharded
+        # index gathers a sharded scan store, sealed (packed / capped) as it
+        # is gathered when the seal options are set.
+        sharded = isinstance(base_idx.store, ShardedCorpusStore)
         ech = engine_chunks(
             base_idx, opt.n_buckets, row_capacity=S_pad,
-            max_width=opt.chunk_group_bytes // max(S_pad * itemsize, 1))
+            max_width=opt.chunk_group_bytes // max(S_pad * itemsize, 1),
+            seal=self._shard_seal() if sharded else None)
         K = ech.n_chunks
         b = ech.width
         # per-chunk bound δ_k on |f(p) − f(p̂_k)| for any entry p in chunk k
@@ -572,7 +645,14 @@ class DetectionEngine:
         acc_pad = np.pad(ds.accuracy.astype(np.float32), (0, S_pad - S),
                          constant_values=0.5)
         chunk_nbytes = S_pad * b * itemsize
-        budget_chunks = max(1, opt.chunk_group_bytes // max(chunk_nbytes, 1))
+        # the byte budget clamps every group against RESIDENT bytes: a
+        # bitpacked shard plane holds 1 bit an entry, so it streams 8× larger
+        # groups under the same budget (each shipped slab is still unpacked;
+        # peak_group_bytes reports that)
+        resident_nbytes = chunk_nbytes
+        if sharded and opt.shard_pack and ech.store.sealed:
+            resident_nbytes = S_pad * (-(-b // 8))
+        budget_chunks = max(1, opt.chunk_group_bytes // max(resident_nbytes, 1))
         if opt.chunk_group is not None:
             Gc = min(max(1, int(opt.chunk_group)), budget_chunks)
         else:
@@ -584,13 +664,16 @@ class DetectionEngine:
             tiles_total=tiles_total, n_tiles=len(coords), Gc=Gc,
             chunk_nbytes=chunk_nbytes, mask_source=mask_source,
             index_build_s=index_build_s,
-            prologue_s=time.perf_counter() - t0 - index_build_s)
+            prologue_s=time.perf_counter() - t0 - index_build_s,
+            sharded=sharded, resident_nbytes=resident_nbytes)
 
-    def _scan_groups(self, ctx: TileScanContext) -> list:
-        """The chunk groups the scan runs: (chunk ids, live-tile mask) for
-        every group in which some surviving tile is kept by some chunk."""
+    def _scan_groups(self, ctx: TileScanContext, tiles=None) -> list:
+        """The chunk groups the scan runs over ``tiles`` (default every
+        surviving tile): (chunk ids, live-tile mask) for every group in
+        which some of those tiles is kept by some chunk."""
+        tiles = ctx.coords if tiles is None else tiles
         K = ctx.ech.n_chunks
-        tile_keep = ctx.chunk_keep[:, ctx.coords[:, 0], ctx.coords[:, 1]]
+        tile_keep = ctx.chunk_keep[:, tiles[:, 0], tiles[:, 1]]
         groups = []
         for g0 in range(0, K, ctx.Gc):
             ks = list(range(g0, min(g0 + ctx.Gc, K)))
@@ -600,14 +683,27 @@ class DetectionEngine:
         return groups
 
     def _fill_group(self, ctx: TileScanContext, ks, gmask, slab: torch.Tensor,
-                    meta: torch.Tensor, coords: torch.Tensor) -> None:
+                    meta: torch.Tensor, coords: torch.Tensor,
+                    tiles=None, runs=None) -> None:
         """Write one group's kernel operands into host tensors: the
-        (S_pad, Gc, w) int8 slab, the (3, Gc) per-chunk p̂ / δ / non-Ē rows
+        (rows, Gc, w) int8 slab, the (3, Gc) per-chunk p̂ / δ / non-Ē rows
         (inert 0.5 / 0 / 0 for the slots of a short group) and the tile
-        list with chunk-pruned tiles marked (-1, -1)."""
+        list (``tiles``, default every surviving tile) with chunk-pruned
+        tiles marked (-1, -1). ``runs`` lists the slab's row ranges as
+        (slab row, global row from, global row to) — a shard owner's
+        compact slab; None is the full S_pad rows. A plain ``CorpusStore``
+        chunk is copied as it is; a sharded one is assembled through the
+        facade straight into the slab."""
         ech = ctx.ech
+        store = ech.store
+        tiles = ctx.coords if tiles is None else tiles
         for i, k in enumerate(ks):
-            slab[:, i, :].copy_(torch.from_numpy(ech.store.chunks[k]))
+            if runs is None and isinstance(store, CorpusStore):
+                slab[:, i, :].copy_(torch.from_numpy(store.chunks[k]))
+                continue
+            dst = slab.numpy()[:, i, :]
+            for o, r0, r1 in runs or ((0, 0, ctx.S_pad),):
+                store.assemble_rows(k, r0, r1, out=dst[o: o + r1 - r0])
         if len(ks) < ctx.Gc:
             slab[:, len(ks):, :] = 0            # inert chunks of a short group
         meta[0] = 0.5
@@ -616,7 +712,7 @@ class DetectionEngine:
         meta[1, : len(ks)] = torch.from_numpy(ctx.delta[ks])
         meta[2, : len(ks)] = torch.from_numpy(ech.nout[ks])
         coords.copy_(torch.from_numpy(
-            np.where(gmask[:, None], ctx.coords, -1).astype(np.int32)))
+            np.where(gmask[:, None], tiles, -1).astype(np.int32)))
 
     def _stage_group(self, ctx: TileScanContext, ks, gmask):
         """One group's kernel operands on the device, staged synchronously:
@@ -631,83 +727,184 @@ class DetectionEngine:
         return (slab.to(dev), meta[0].to(dev), meta[1].to(dev),
                 meta[2].to(dev), coords.to(dev))
 
+    def _stream_groups(self, ctx: TileScanContext, groups, tiles,
+                       acc: np.ndarray, rows: int, runs=None):
+        """Stream ``groups`` through the kernel over the tile list ``tiles``
+        of a slab of ``rows`` rows (``runs`` as in ``_fill_group``) with
+        accuracies ``acc``: the groups are staged into a ``SlabRing`` of
+        ``prefetch_depth + 1`` slots by the ``ChunkPrefetcher``'s producer,
+        ``prefetch_depth`` groups ahead of the kernel. Returns the five
+        ``(len(tiles), T, T)`` device stacks, B1's device ms (CUDA events)
+        and the staging telemetry."""
+        dev = self.device
+        T, n = ctx.T, len(tiles)
+        depth = max(int(self.options.prefetch_depth), 0)
+        stacks = [torch.zeros((n, T, T), dtype=torch.float32, device=dev)
+                  for _ in range(5)]
+        acc_d = torch.from_numpy(np.ascontiguousarray(acc)).to(dev)
+        ring = SlabRing(min(depth + 1, len(groups)),
+                        (rows, ctx.Gc, ctx.ech.width), ctx.Gc, n, dev)
+
+        def stage(desc):
+            g, ks, gmask = desc
+            slot = g % ring.n
+            ring.acquire(slot)
+            self._fill_group(ctx, ks, gmask, ring.host[slot],
+                             ring.host_meta[slot], ring.host_coords[slot],
+                             tiles=tiles, runs=runs)
+            ring.upload(slot)
+            return slot
+
+        timed = []
+        pf = ChunkPrefetcher([(g, ks, gm) for g, (ks, gm) in enumerate(groups)],
+                             stage, depth=depth)
+        try:
+            for slot in pf:
+                v, meta, coords_g = ring.use(slot)
+                if dev.type == "cuda":
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                group_tile_scores(v, acc_d, meta[0], meta[1], meta[2],
+                                  coords_g, stacks, self.cfg, tile=T)
+                if dev.type == "cuda":
+                    ev[1].record()
+                    timed.append(ev)
+                ring.release(slot)
+        finally:
+            ring.close()
+            pf.close()
+            # a producer blocked on a slot still in use waited for the
+            # kernel, not on staging
+            pipe = {"staging_s": pf.staging_s - ring.slot_wait_s,
+                    "stage_wait_s": pf.stage_wait_s,
+                    "compute_wait_s": pf.compute_wait_s + ring.slot_wait_s}
+        kernel_ms = 0.0
+        if timed:
+            torch.cuda.synchronize(dev)
+            kernel_ms = sum(a.elapsed_time(z) for a, z in timed)
+        return stacks, kernel_ms, pipe
+
     def _run_tiled_scan(self, ctx: TileScanContext):
         """Step 3: the tile∘chunk scan — the four (S_pad, S_pad) device
         grids (C_same→, count, non-Ē count, error bound) + run count.
 
-        Groups are staged through a ``SlabRing`` of ``prefetch_depth + 1``
-        slots by the ``ChunkPrefetcher``'s producer, ``prefetch_depth``
-        groups ahead of the kernel.
+        Unsharded, every group runs over the whole surviving tile list and
+        the stacks scatter once. Sharded, each owner scans its own tiles
+        over a compact slab (``_scan_owner``); only when every owner has
+        returned are their stacks scattered into the grids
+        (``merge_owner_partials``), so a failing owner leaves nothing
+        merged.
         """
         dev = self.device
-        T, S_pad, n_tiles = ctx.T, ctx.S_pad, ctx.n_tiles
-        K, b = ctx.ech.n_chunks, ctx.ech.width
-        depth = max(int(self.options.prefetch_depth), 0)
-        grids = [torch.zeros((S_pad, S_pad), dtype=torch.float32, device=dev)
-                 for _ in range(4)]
+        S_pad, n_tiles, K = ctx.S_pad, ctx.n_tiles, ctx.ech.n_chunks
         t0 = time.perf_counter()
         launches0 = tile_scores.launches
         chunk_tiles_run = 0
-        kernel_ms = 0.0
-        pipe = {"staging_s": 0.0, "stage_wait_s": 0.0, "compute_wait_s": 0.0}
-        groups = self._scan_groups(ctx) if n_tiles and K else []
-        if groups:
-            # per-tile accumulators live on the device across groups; one
-            # scatter at the end
-            stacks = [torch.zeros((n_tiles, T, T), dtype=torch.float32,
-                                  device=dev) for _ in range(5)]
-            acc = torch.from_numpy(ctx.acc_pad).to(dev)
-            # a tile shipped with a group scans ALL the group's chunks, so
-            # count what really runs
-            chunk_tiles_run = sum(int(gm.sum()) * len(ks) for ks, gm in groups)
-            ring = SlabRing(min(depth + 1, len(groups)), (S_pad, ctx.Gc, b),
-                            ctx.Gc, n_tiles, dev)
-
-            def stage(desc):
-                g, ks, gmask = desc
-                slot = g % ring.n
-                ring.acquire(slot)
-                self._fill_group(ctx, ks, gmask, ring.host[slot],
-                                 ring.host_meta[slot], ring.host_coords[slot])
-                ring.upload(slot)
-                return slot
-
-            timed = []
-            pf = ChunkPrefetcher([(g, ks, gm) for g, (ks, gm)
-                                  in enumerate(groups)], stage, depth=depth)
-            try:
-                for slot in pf:
-                    v, meta, coords_g = ring.use(slot)
-                    if dev.type == "cuda":
-                        ev = (torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True))
-                        ev[0].record()
-                    group_tile_scores(v, acc, meta[0], meta[1], meta[2],
-                                      coords_g, stacks, self.cfg, tile=T)
-                    if dev.type == "cuda":
-                        ev[1].record()
-                        timed.append(ev)
-                    ring.release(slot)
-            finally:
-                ring.close()
-                pf.close()
-                # a producer blocked on a slot still in use waited for the
-                # kernel, not on staging
-                pipe = {"staging_s": pf.staging_s - ring.slot_wait_s,
-                        "stage_wait_s": pf.stage_wait_s,
-                        "compute_wait_s": pf.compute_wait_s + ring.slot_wait_s}
-            if timed:
+        if ctx.sharded and n_tiles and K:
+            partials = [self._scan_owner(ctx, s)
+                        for s in range(ctx.ech.store.n_shards)]
+            t_merge = time.perf_counter()
+            grids = merge_owner_partials(partials, ctx.n_blocks, ctx.T,
+                                         device=dev)
+            if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-                kernel_ms = sum(a.elapsed_time(z) for a, z in timed)
-            scatter_tile_stacks(grids, torch.from_numpy(ctx.coords).to(dev),
-                                stacks, ctx.n_blocks, T)
+            extra = self._owner_stats(partials)
+            extra["merge_s"] = time.perf_counter() - t_merge
+            chunk_tiles_run = sum(p.chunk_tiles_run for p in partials)
+            del partials
+        else:
+            grids = [torch.zeros((S_pad, S_pad), dtype=torch.float32,
+                                 device=dev) for _ in range(4)]
+            groups = self._scan_groups(ctx) if n_tiles and K else []
+            extra = {"groups_run": len(groups), "scan_kernel_ms": 0.0,
+                     "staging_s": 0.0, "stage_wait_s": 0.0,
+                     "compute_wait_s": 0.0}
+            if groups:
+                # a tile shipped with a group scans ALL the group's chunks,
+                # so count what really runs
+                chunk_tiles_run = sum(int(gm.sum()) * len(ks)
+                                      for ks, gm in groups)
+                stacks, kernel_ms, pipe = self._stream_groups(
+                    ctx, groups, ctx.coords, ctx.acc_pad, S_pad)
+                extra.update(pipe, scan_kernel_ms=kernel_ms)
+                scatter_tile_stacks(grids,
+                                    torch.from_numpy(ctx.coords).to(dev),
+                                    stacks, ctx.n_blocks, ctx.T)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
-        self._scan_stats = {"groups_run": len(groups),
+        self._scan_stats = {**extra,
                             "kernel_launches": tile_scores.launches - launches0,
-                            "scan_s": time.perf_counter() - t0,
-                            "scan_kernel_ms": kernel_ms, **pipe}
+                            "scan_s": time.perf_counter() - t0}
         return grids, chunk_tiles_run
+
+    @staticmethod
+    def _owner_stats(partials) -> dict:
+        """The owners' scan telemetry, summed (groups, staging, B1 device
+        ms), with each owner's scan seconds."""
+        out = {k: sum(p.stats.get(k, 0) for p in partials)
+               for k in ("groups_run", "staging_s", "stage_wait_s",
+                         "compute_wait_s", "scan_kernel_ms")}
+        out["owner_scan_s"] = [p.stats.get("scan_s", 0.0) for p in partials]
+        return out
+
+    def _block_owners(self, ctx: TileScanContext) -> np.ndarray:
+        """(n_blocks,) — the shard owning each tile-row block (the shard of
+        the block's first row; past the last row, the last row's)."""
+        plan = ctx.ech.store.plan
+        last_row = max(plan.n_rows - 1, 0)
+        return np.array([plan.owner_of_row(min(r * ctx.T, last_row))
+                         for r in range(ctx.n_blocks)], np.int64)
+
+    def _scan_owner(self, ctx: TileScanContext, owner: int) -> OwnerPartial:
+        """One owner's share of the scan: its surviving tiles' stacks on the
+        device, or one ``ShardScanError`` carrying the owner id, the root
+        fault chained (a staging failure arrives wrapped in
+        ``PipelineStageError``; callers triage on what it wraps)."""
+        owner = int(owner)
+        mine = self._block_owners(ctx)[ctx.coords[:, 0]] == owner
+        tiles = ctx.coords[mine]
+        part = OwnerPartial(owner=owner, n_blocks=ctx.n_blocks, tile=ctx.T,
+                            coords=tiles, stacks=None)
+        if not (len(tiles) and ctx.ech.n_chunks):
+            return part
+        t0 = time.perf_counter()
+        try:
+            part.stacks, part.chunk_tiles_run, part.stats = (
+                self._scan_one_shard(ctx, tiles))
+        except Exception as e:
+            root = (e.__cause__ if isinstance(e, PipelineStageError)
+                    and e.__cause__ else e)
+            raise ShardScanError(
+                owner, f"owner tile scan failed: {type(e).__name__}: {e}"
+            ) from root
+        part.stats["scan_s"] = time.perf_counter() - t0
+        return part
+
+    def _scan_one_shard(self, ctx: TileScanContext, tiles: np.ndarray):
+        """Stream chunk groups for ONE owner's tiles over a compact slab:
+        only the row blocks its tiles touch (row and column sides), in
+        contiguous runs assembled through the facade. Returns ``(stacks,
+        chunk_tiles_run, stats)`` — the five ``(len(tiles), T, T)`` device
+        stacks (None when every group was pruned)."""
+        T = ctx.T
+        needed = np.unique(tiles)
+        pos = np.full(ctx.n_blocks, -1, np.int64)
+        pos[needed] = np.arange(len(needed))
+        local = pos[tiles].astype(np.int32)
+        acc = ctx.acc_pad.reshape(ctx.n_blocks, T)[needed].reshape(-1)
+        runs = [(int(pos[seg[0]]) * T, int(seg[0]) * T, int(seg[-1] + 1) * T)
+                for seg in np.split(needed,
+                                    np.flatnonzero(np.diff(needed) != 1) + 1)]
+        groups = self._scan_groups(ctx, tiles)
+        run = sum(int(gm.sum()) * len(ks) for ks, gm in groups)
+        if not groups:
+            return None, 0, {"groups_run": 0}
+        stacks, kernel_ms, pipe = self._stream_groups(
+            ctx, groups, local, acc, len(needed) * T, runs)
+        return stacks, run, {"groups_run": len(groups),
+                             "scan_kernel_ms": kernel_ms,
+                             "slab_rows": len(needed) * T, **pipe}
 
     def _tiled_finalize(self, ctx: TileScanContext, grids,
                         chunk_tiles_run: int) -> DetectionResult:
@@ -801,6 +998,111 @@ class DetectionEngine:
             "rescore_s": rescore_s,
             "finalize_s": time.perf_counter() - t_fin,
         }
+        if ctx.sharded:
+            # shard-plane telemetry: what each shard held, its spill
+            # traffic, and the owners' scans and merge
+            st = ech.store
+            self.last_stats.update({
+                "n_shards": st.n_shards,
+                "shard_plan": st.plan.sizes().tolist(),
+                "shard_resident_bytes": st.shard_resident_bytes(),
+                "shard_peak_resident_bytes": st.shard_peak_bytes(),
+                "resident_chunk_bytes": int(ctx.resident_nbytes),
+                "spill": st.spill_stats(),
+                "owner_scan_s": scan.get("owner_scan_s", []),
+                "merge_s": scan.get("merge_s", 0.0),
+            })
+        return result
+
+    # -- shard-owner fan-out --------------------------------------------------
+
+    #: engine modes fanned out as per-owner partial tile scans; the other
+    #: modes read through the shard facade in one engine instead
+    OWNER_FANOUT_MODES = ("bucketed", "sampled", "sample_verify")
+
+    def owner_scan_context(self, ds: ClaimsDataset, p_claim: np.ndarray,
+                           index: InvertedIndex | None = None
+                           ) -> TileScanContext:
+        """The fan-out's shared prologue, computed once for all owners.
+
+        Deterministic given (ds, p_claim, index, options): index build,
+        engine chunking, bucket deltas and tile∘chunk pruning never rerun
+        per owner. Sampled modes resolve their item subset here (``items``
+        rides on the context for ``sample_verify``'s finalize). Requires a
+        fan-out mode and a row-range-sharded store (``n_shards`` > 1, or a
+        sharded ``index``).
+        """
+        if self.mode not in self.OWNER_FANOUT_MODES:
+            raise ValueError(
+                f"owner fan-out supports modes {self.OWNER_FANOUT_MODES}, "
+                f"engine mode is {self.mode!r}")
+        items = None
+        if self.mode in ("sampled", "sample_verify"):
+            items = self._sample_items(ds)
+            ctx = self._tiled_prologue(ds.subset_items(items),
+                                       p_claim[:, items])
+        else:
+            ctx = self._tiled_prologue(ds, p_claim, index)
+        ctx.items = items
+        if not ctx.sharded:
+            raise ValueError(
+                "owner fan-out requires a row-range-sharded engine store "
+                "(build the index with n_shards > 1)")
+        return ctx
+
+    def detect_owner_partial(self, ds: ClaimsDataset, p_claim: np.ndarray,
+                             owner: int, index: InvertedIndex | None = None,
+                             ctx: TileScanContext | None = None
+                             ) -> OwnerPartial:
+        """ONE owner's share of the tiled pass: the surviving tiles whose
+        row block falls in ``owner``'s row range, scanned over the row
+        blocks they touch, as an ``OwnerPartial`` of device tile stacks.
+        Kernel operands equal the single-pass scan's, so per-tile outputs
+        are bit-equal. A failure is one ``ShardScanError`` carrying the
+        owner id."""
+        if ctx is None:
+            ctx = self.owner_scan_context(ds, p_claim, index=index)
+        n = ctx.ech.store.n_shards
+        if not 0 <= int(owner) < n:
+            raise ValueError(f"owner {owner} out of range for {n} owners")
+        launches0 = tile_scores.launches
+        part = self._scan_owner(ctx, owner)
+        part.stats["kernel_launches"] = tile_scores.launches - launches0
+        return part
+
+    def finalize_owner_partials(self, ds: ClaimsDataset, p_claim: np.ndarray,
+                                ctx: TileScanContext, partials: list
+                                ) -> DetectionResult:
+        """Merge the owners' partials and finish the pass.
+
+        Refuses unless every owner contributed exactly one partial — after
+        an owner failure nothing merges. The owners' tiles scatter once
+        (``merge_owner_partials``), then the standard finalize (INDEX step
+        3, error-bounded exact rescore, decide) runs on the merged grids;
+        for ``sample_verify`` the sampled result then feeds the recall-slack
+        sweep and the exact candidate rescore over the full dataset.
+        """
+        n = ctx.ech.store.n_shards
+        got = sorted(int(p.owner) for p in partials)
+        if got != list(range(n)):
+            raise ValueError(
+                f"finalize_owner_partials: partials cover owners {got}, "
+                f"need each of 0..{n - 1} exactly once")
+        t0 = time.perf_counter()
+        grids = merge_owner_partials(list(partials), ctx.n_blocks, ctx.T,
+                                     device=self.device)
+        self._scan_stats = {
+            **self._owner_stats(partials),
+            "kernel_launches": sum(p.stats.get("kernel_launches", 0)
+                                   for p in partials),
+            "scan_s": sum(p.stats.get("scan_s", 0.0) for p in partials),
+            "merge_s": time.perf_counter() - t0}
+        run = sum(int(p.chunk_tiles_run) for p in partials)
+        result = self._tiled_finalize(ctx, grids, run)
+        if self.mode == "sample_verify":
+            return self._sample_verify_finalize(
+                ds, p_claim, ctx.items, result, self.last_stats,
+                self._last_considered, ctx.t0)
         return result
 
 

@@ -44,6 +44,7 @@ from repro_torch.core.store import (
     _nonzero_2d,
     align_chunk,
 )
+from repro_torch.core.shardplan import ShardedCorpusStore
 from repro_torch.core.types import (
     CLAIM_KEY_BASE,
     ClaimsDataset,
@@ -60,6 +61,7 @@ class InvertedIndex:
     the explicit ``ebar_mask`` of an index captured after commits."""
 
     store: CorpusStore         # entry-chunked incidence + entry metadata
+                               # (or its row-range-sharded facade)
     ebar_start: int            # entries [ebar_start:] form Ē (prefix form)
     l_counts: np.ndarray       # (S, S) int32 — shared-item counts l(S1,S2)
     items_per_source: np.ndarray  # (S,) int32 — |D̄(S)|
@@ -151,18 +153,18 @@ class InvertedIndex:
                         row_capacity: Optional[int] = None) -> "InvertedIndex":
         """Rebuild an index from a ``state_dict`` — this package's or the
         JAX package's, which share one key set — bit-exact, without a
-        rebuild. A row-range-sharded capture (``store/shard_starts``) is
-        refused until the shard plane is ported."""
-        if "store/shard_starts" in d:
-            raise NotImplementedError(
-                "sharded index state (store/shard_starts) needs the shard "
-                "plane, which is not ported yet (ROADMAP A10)")
+        rebuild. A row-range-sharded capture (``store/shard_starts``) comes
+        back as a ``ShardedCorpusStore`` under the same plan."""
         meta = np.asarray(d["index/meta"], np.int64)
         ebar_mask = None
         if int(meta[1]):
             ebar_mask = np.asarray(d["index/ebar_mask"], np.uint8).astype(bool)
+        if "store/shard_starts" in d:
+            store = ShardedCorpusStore.from_state_dict(d, capacity=row_capacity)
+        else:
+            store = CorpusStore.from_state_dict(d, capacity=row_capacity)
         return cls(
-            store=CorpusStore.from_state_dict(d, capacity=row_capacity),
+            store=store,
             ebar_start=int(meta[0]),
             l_counts=np.asarray(d["index/l_counts"], np.int32),
             items_per_source=np.asarray(d["index/items_per_source"], np.int32),
@@ -208,11 +210,12 @@ def entry_extreme_accuracies(
     V, acc: np.ndarray, chunk: int = 4096
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Per-entry (min, second-min, max) provider accuracies from the
-    incidence: a ``CorpusStore`` (its nonzero cells, chunk by chunk) or a
-    dense array (``chunk`` entries at a time), to bound peak memory. An
+    incidence: a ``CorpusStore`` or its sharded facade (its nonzero cells,
+    chunk by chunk) or a dense array (``chunk`` entries at a time), to
+    bound peak memory. An
     entry with one provider gets its minimum as its second minimum; one
     without providers gets (inf, inf, −inf)."""
-    if isinstance(V, CorpusStore):
+    if isinstance(V, (CorpusStore, ShardedCorpusStore)):
         return _store_extreme_accuracies(V, acc)
     E = V.shape[1]
     a_min = np.empty(E, np.float64)
@@ -955,6 +958,7 @@ def engine_chunks(
     n_buckets: int = 64,
     row_capacity: Optional[int] = None,
     max_width: Optional[int] = None,
+    seal: Optional[dict] = None,
 ) -> EngineChunks:
     """Build the engine's uniform-width chunk store from an index.
 
@@ -963,8 +967,11 @@ def engine_chunks(
     is chunk-aligned by construction (each region is padded with inert zero
     columns), which keeps the kernel's per-chunk non-Ē channel exact.
     ``max_width`` caps the chunk width from above (the engine derives it
-    from its per-pass byte budget).
+    from its per-pass byte budget). ``seal`` (``pack`` / ``spill_dir`` /
+    ``resident_bytes``) streams a seal through the gather of a sharded
+    index store (``ShardedCorpusStore.gather_entries``).
     """
+    kw = seal if seal and isinstance(index.store, ShardedCorpusStore) else {}
     nonebar = index.nonebar_mask
     live = index.live_mask
     non = np.nonzero(nonebar)[0]
@@ -972,7 +979,8 @@ def engine_chunks(
     n_live = len(non) + len(ebar)
     cap = index.n_sources if row_capacity is None else int(row_capacity)
     if n_live == 0:
-        empty = index.store.gather_entries(np.zeros(0, np.int64), capacity=cap)
+        empty = index.store.gather_entries(np.zeros(0, np.int64), capacity=cap,
+                                           **kw)
         z = np.zeros(0, np.float32)
         return EngineChunks(store=empty, p_hat=z, p_lo=z, p_hi=z, nout=z,
                             ebar_chunk=0, n_live=0,
@@ -990,7 +998,7 @@ def engine_chunks(
         order_suf, np.full(pad1, -1, np.int64),
     ])
     store = index.store.gather_entries(order, chunk_entries=b,
-                                       capacity=cap)
+                                       capacity=cap, **kw)
     K = store.n_chunks
     ebar_chunk = (len(non) + pad0) // b
 

@@ -22,7 +22,12 @@ writes a captured array in place, so ``snapshot()`` is a list of array
 references and ``StoreSnapshot.restore`` is bit-exact. ``epoch`` counts
 structural mutations, and chunk handles are memoized per ``(epoch,
 n_rows)``; ``mseq`` names one membership state for the life of the
-process. Bitpacked membership (the shard plane's) is not carried yet.
+process.
+
+Bitpacked membership (``PackedBlock``, ``pack_membership``,
+``unpack_membership``, ``packed_count_matmul``) is the row-range shard
+plane's 1-bit resident form (``core/shardplan.py``): plain numpy, as in the
+JAX package, which computes it outside any kernel.
 """
 from __future__ import annotations
 
@@ -154,6 +159,10 @@ class CorpusStore:
     def chunk_start(self, c: int) -> int:
         """Global index of chunk ``c``'s first entry column."""
         return c * self.chunk_entries
+
+    def chunk_width(self, c: int) -> int:
+        """Column count of chunk ``c``."""
+        return self.chunks[c].shape[1]
 
     def chunk(self, c: int) -> ChunkView:
         """Chunk ``c`` as a handle: live rows + metadata views (zero copy).
@@ -665,6 +674,80 @@ def _nonzero_2d(blk: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     return flat // w, flat % w
 
 
+# ---------------------------------------------------------------------------
+# Bitpacked membership (the shard plane's resident form)
+# ---------------------------------------------------------------------------
+
+#: Byte → set-bit-count lookup table for ``packed_count_matmul``.
+_POPCOUNT = np.array([bin(i).count("1") for i in range(256)], np.int64)
+
+
+@dataclass(frozen=True)
+class PackedBlock:
+    """One bitpacked incidence block: int8 membership at 1 bit per entry.
+
+    ``bits[r, :]`` is row ``r``'s membership packed MSB-first along the
+    column axis (``np.packbits`` layout); ``width`` is the original column
+    count, since the packed byte axis rounds up to a multiple of 8. Pad bits
+    of the last byte are always zero, so AND/popcount over whole bytes never
+    sees phantom members. Frozen: mutation paths unpack, edit, repack.
+    """
+
+    bits: np.ndarray           # (rows, ceil(width/8)) uint8
+    width: int                 # original (unpacked) column count
+
+    @property
+    def nbytes(self) -> int:
+        """Resident bytes — the packed payload (1 bit per entry)."""
+        return int(self.bits.nbytes)
+
+    @property
+    def shape(self) -> tuple:
+        """Logical (rows, width) of the unpacked block."""
+        return (int(self.bits.shape[0]), int(self.width))
+
+
+def pack_membership(block: np.ndarray) -> PackedBlock:
+    """Pack a 0/1 membership block to 1 bit per entry (8× against int8).
+
+    Any width: a width that is not a multiple of 8 pads the last byte with
+    zero bits, which ``unpack_membership`` trims back.
+    """
+    block = np.ascontiguousarray(block)
+    if block.ndim != 2:
+        raise ValueError(f"pack_membership: need a 2-D block, got {block.shape}")
+    return PackedBlock(bits=np.packbits(block != 0, axis=1),
+                       width=int(block.shape[1]))
+
+
+def unpack_membership(packed: PackedBlock, dtype=np.int8) -> np.ndarray:
+    """Inverse of ``pack_membership`` — bit-exact for 0/1 input blocks."""
+    out = np.unpackbits(packed.bits, axis=1, count=packed.width)
+    return out.view(np.int8) if np.dtype(dtype) == np.int8 else out.astype(dtype)
+
+
+def packed_count_matmul(a: PackedBlock, b: Optional[PackedBlock] = None,
+                        dtype=np.float32, row_block: int = 256) -> np.ndarray:
+    """``counts[i, j] = Σ_e a[i, e] · b[j, e]`` straight off the packed bits.
+
+    Byte-wise AND + popcount: every partial sum is an exact small integer,
+    so the result equals the int8 product in ``dtype`` (float32 holds
+    integers below 2²⁴ exactly). ``b=None`` means ``a @ a.T``;
+    ``row_block`` bounds the (rows_a · rows_b · bytes) AND temporary.
+    """
+    other = a if b is None else b
+    if b is not None and a.width != b.width:
+        raise ValueError(
+            f"packed_count_matmul: width mismatch {a.width} vs {b.width}")
+    n, m = a.bits.shape[0], other.bits.shape[0]
+    out = np.zeros((n, m), dtype)
+    step = max(int(row_block), 1)
+    for i0 in range(0, n, step):
+        anded = a.bits[i0: i0 + step, None, :] & other.bits[None, :, :]
+        out[i0: i0 + step] = _POPCOUNT[anded].sum(axis=2).astype(dtype)
+    return out
+
+
 @dataclass
 class StoreSnapshot:
     """Rollback point for one ``CorpusStore`` (refs captured by ``snapshot``)."""
@@ -707,5 +790,7 @@ class StoreSnapshot:
             c[self.n_rows:] = 0
 
 
-__all__ = ["CorpusStore", "ChunkView", "StoreSnapshot", "DEFAULT_CHUNK_ENTRIES",
-           "STORE_LAYOUT_VERSION", "align_chunk", "next_mseq"]
+__all__ = ["CorpusStore", "ChunkView", "PackedBlock", "StoreSnapshot",
+           "DEFAULT_CHUNK_ENTRIES", "STORE_LAYOUT_VERSION", "align_chunk",
+           "next_mseq", "pack_membership", "packed_count_matmul",
+           "unpack_membership"]

@@ -32,8 +32,9 @@ At detect time the engine derives each *gathered* chunk's mask by permuting
 cached base columns through ``EngineChunks.order`` — gathered column ``j``
 is base column ``order[j]`` over the same rows (−1 markers are inert zero
 columns) — bit-equal to a fresh reduction of the gathered chunk. This is
-the JAX package's cache on the port's dense store (its row-range-sharded
-store is not carried).
+the JAX package's cache, over a plain ``CorpusStore`` (read directly) or
+a ``ShardedCorpusStore`` (read through its facade: ``assemble_rows``,
+``block_or``, ``chunk_width``).
 """
 from __future__ import annotations
 
@@ -41,11 +42,15 @@ from typing import Optional
 
 import numpy as np
 
+from repro_torch.core.store import CorpusStore
+
 
 def _rows_slab(store, c: int, r0: int, r1: int) -> np.ndarray:
     """Dense int8 ``(r1 − r0, width_c)`` row slab of chunk ``c``; rows
     beyond the chunk's capacity read as zero, so tile-aligned requests are
     always safe."""
+    if not isinstance(store, CorpusStore):
+        return store.assemble_rows(c, r0, r1)
     blk = store.chunks[c]
     out = np.zeros((r1 - r0, blk.shape[1]), np.int8)
     hi = min(r1, blk.shape[0])
@@ -59,8 +64,11 @@ def chunk_block_inc(store, c: int, tile: int, n_blocks: int) -> np.ndarray:
 
     The one full-chunk reduction (the engine's cache-miss path and the
     cache's builds route through it). Reduces the live rows; a trailing
-    partial block ORs the rows it has.
+    partial block ORs the rows it has. A sharded store reduces shard by
+    shard (``block_or``): no host assembles the full chunk.
     """
+    if not isinstance(store, CorpusStore):
+        return store.block_or(c, tile, n_blocks)
     blk = store.chunks[c]
     w = blk.shape[1]
     out = np.zeros((n_blocks, w), bool)
@@ -82,11 +90,14 @@ def cols_block_inc(store, c: int, cols: np.ndarray, tile: int,
     it without a full-chunk regather (``chunk_block_inc``).
     """
     cols = np.asarray(cols, np.int64)
-    blk = store.chunks[c]
-    sub = np.zeros((n_blocks * tile, len(cols)), np.int8)
-    nr = min(store.n_rows, blk.shape[0], n_blocks * tile)
-    if nr > 0:
-        sub[:nr] = blk[:nr, cols]
+    if isinstance(store, CorpusStore):
+        blk = store.chunks[c]
+        sub = np.zeros((n_blocks * tile, len(cols)), np.int8)
+        nr = min(store.n_rows, blk.shape[0], n_blocks * tile)
+        if nr > 0:
+            sub[:nr] = blk[:nr, cols]
+    else:
+        sub = store.assemble_rows(c, 0, n_blocks * tile)[:, cols]
     return (sub != 0).reshape(n_blocks, tile, len(cols)).any(axis=1)
 
 
@@ -181,7 +192,7 @@ class BlockOrCache:
         if 0 <= ns < E_new:
             for cid in range(ns // w, store.n_chunks):
                 s0 = cid * w
-                wc = int(store.chunks[cid].shape[1])
+                wc = store.chunk_width(cid)
                 lo = max(ns, s0)
                 if lo >= s0 + wc:
                     continue

@@ -104,10 +104,20 @@ def test_from_jax_state_dict_same_engine_chunks(world):
 
 
 def test_sharded_state_dict_refused():
+    """A sharded capture (``store/shard_starts``) loads as a sharded store
+    under its plan; one from a newer shard layout version is refused."""
+    from repro_torch.core.shardplan import ShardedCorpusStore
+
     ds, p = _world("motivating")
     d = jidx.build_index(ds, p, CFG_J).state_dict()
-    d["store/shard_starts"] = np.zeros(2, np.int64)
-    with pytest.raises(NotImplementedError, match="A10"):
+    d["store/shard_starts"] = np.zeros(2, np.int64)     # version 0, one shard
+    t = tidx.InvertedIndex.from_state_dict(d)
+    assert isinstance(t.store, ShardedCorpusStore) and t.store.n_shards == 1
+    plain = dict(d)
+    del plain["store/shard_starts"]
+    _assert_same_index(tidx.InvertedIndex.from_state_dict(plain), t)
+    d["store/shard_starts"] = np.array([2, 0], np.int64)
+    with pytest.raises(ValueError, match="newer"):
         tidx.InvertedIndex.from_state_dict(d)
 
 
