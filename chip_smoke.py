@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's paths on the card — the detection pass
-``repro_torch.core.DetectionEngine(mode="bucketed").detect`` and the
+``repro_torch.core.DetectionEngine(mode="bucketed").detect``, the batched
+detection service ``repro_torch.core.DetectionService`` with its commit
+log, snapshots, restore and shard-owner fleet, and the
 engine's other modes (``bound``, ``bound+``, ``hybrid``, ``incremental``,
 ``sampled``, ``sample_verify``), the
 full-square and per-tile copyscore (``repro_torch.kernels.ops.copyscore_store``,
@@ -14,7 +16,8 @@ plane with the engine's shard-owner fan-out, the LM serving path
 ``repro_torch.runtime.ServeLoop``, and the LM training path
 ``repro_torch.runtime.train`` — and checks them phase by phase; any
 failure exits non-zero. Phases 18 and 13–17 run right after phase 6, while
-the full pass's store is still in memory; then phases 7–12. Phases:
+the full pass's store is still in memory; then phase 19, then phases 7–12.
+Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
   2. build every kernel under ``src/repro_torch/kernels/csrc`` from the
@@ -151,7 +154,29 @@ the full pass's store is still in memory; then phases 7–12. Phases:
      seconds, B1's launches and device ms on the path, the spill traffic
      and the peak device memory; (d) at S=2048 under the same options, all
      nine modes with 2 and 4 shards deciding like the unsharded card run,
-     and ``bucketed`` like the exact INDEX.
+     and ``bucketed`` like the exact INDEX;
+ 19. the detection service at the repo's Book-full preset
+     (``book_full_spec``: 3182 sources × 20,000 items, the CLI's
+     ``CopyConfig(alpha=0.1, s=0.8, n=50.0)``): (a) 32 requests of 4 query
+     rows (``synthetic_query_rows``, seed 1) through the worker thread of a
+     durable bucketed ``DetectionService`` (batches of ≤ 8, snapshots every
+     4 commits, ``fsync="commit"``), every response deciding like one
+     ``index_detect_exact`` over the corpus plus the 128 rows; req/s,
+     latency and queue-wait percentiles, passes and mean batch, B1's
+     launches and device ms from each pass's ``last_stats``, the transient
+     commit and rollback seconds and peak memory; (b) the wave's accepted
+     rows (as the CLI commits them) and 16 new independent sources
+     committed, the wave re-served: cache hits > 0, every response equal
+     to a cache-free service restored from the state dir; commit ms,
+     snapshot seconds and bytes, the restore receipt and replay rate; (c) a
+     child process restores the state dir and commits batches one by one,
+     is SIGKILLed after its third acknowledgement; the restore holds every
+     acknowledged commit's rows bit for bit and decides like a
+     never-restarted twin; (d) a retraction of the 16 newest rows decides
+     like a fresh service over the retracted corpus, and its rollback like
+     before it; (e) the wave's first 8 requests through a 4-owner packed
+     ``ReplicaRouter`` fleet (one fan-out pass a request, ~4.5 s each)
+     decide like (a), B1's launches an owner and the fleet's req/s.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -1860,6 +1885,439 @@ def phase_mutation(torch, np, dev, ops, cfg) -> int:
     return launches
 
 
+# phase 19: the detection service at the repo's Book-full preset
+# (``book_full_spec``: 3182 sources × 20,000 items); the CLI's CopyConfig
+SERVICE_CFG = dict(alpha=0.1, s=0.8, n=50.0)
+SERVICE_REQUESTS = 32          # the wave: requests of SERVICE_ROWS rows
+SERVICE_ROWS = 4
+SERVICE_BATCH = 8              # max_batch_requests
+SERVICE_PENDING = 256          # max_pending_rows
+SERVICE_SNAPSHOT_EVERY = 4
+# (b) new sources committed after the wave's accepted rows: independent
+# rows of synthetic_query_rows (seed 2), SERVICE_COMMIT_ROWS a commit
+SERVICE_NEW_SOURCES = 16
+SERVICE_COMMIT_ROWS = 2
+# (c) the child commits up to this many batches (seed 3); the parent kills
+# it after SERVICE_KILL_AFTER acknowledgements
+SERVICE_CHILD_COMMITS = 6
+SERVICE_KILL_AFTER = 3
+SERVICE_PROBE = 8              # requests of the probe wave (c, d)
+SERVICE_RETRACT = 16           # (d) newest rows retracted
+SERVICE_FLEET_OWNERS = 4
+# (e) the wave's first requests through the fleet: each is a fan-out pass
+# of its own (~4.5 s on an H100), so 8, not the wave's 32, keep the phase
+# near its time budget
+SERVICE_FLEET_REQUESTS = 8
+
+# the kill drill's child: restores the state dir, commits the saved batches
+# one by one, and prints each acknowledged epoch on a line of its own
+_KILL_CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np
+from repro_torch.core.serving import DetectionService
+state, rows, device = sys.argv[2], np.load(sys.argv[3]), sys.argv[4]
+svc = DetectionService.restore(state, device=device)
+print("restored", svc.epoch, flush=True)
+for k in range(len(rows["values"])):
+    svc.commit(rows["values"][k], rows["accuracy"][k], rows["p_claim"][k])
+    print("ack", svc.epoch, flush=True)
+"""
+
+
+def _wave(svc, reqs, timeout=600.0):
+    """Serve ``reqs`` through the service's worker thread; the responses in
+    request order and the wall seconds."""
+    t0 = time.perf_counter()
+    with svc:
+        futs = [svc.submit(r, timeout=timeout) for r in reqs]
+        out = [f.result(timeout=timeout) for f in futs]
+    return out, time.perf_counter() - t0
+
+
+def _same_decisions(np, got, want, what):
+    """Hold two lists of responses to equal decisions, request by request."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} responses, {len(want)} "
+                             f"expected")
+    for a, b in zip(got, want):
+        if not (np.array_equal(a.copying, b.copying)
+                and np.array_equal(a.intra_copying, b.intra_copying)):
+            raise AssertionError(f"{what}: request {a.rid} decides "
+                                 f"differently")
+
+
+def phase_service(torch, np, dev, ops, spec=None) -> dict:
+    """Phase 19: the batched detection service on the card, at the repo's
+    Book-full preset, with durability and the shard-owner fleet.
+
+    (a) 32 requests of 4 query rows through the worker thread of a durable
+    bucketed ``DetectionService``: every response decides like one
+    ``index_detect_exact`` over the corpus plus the 128 rows, row for row.
+    (b) The wave's accepted rows (no copying, as the CLI commits them) and
+    16 new sources are committed (fsync'd, snapshots every 4 commits) and
+    the wave re-served: cache hits > 0, and every response equals a
+    cache-free service restored from the state dir. (c) A child process
+    restores the state dir and commits batches one by one; it is SIGKILLed
+    after its third acknowledgement, and the restore holds every
+    acknowledged commit bit for bit and decides like a never-restarted twin.
+    (d) A retraction of the 16 newest rows decides like a fresh service over
+    the retracted corpus; its rollback like before it. (e) The wave's
+    first requests through a 4-owner fleet decide like (a). Returns B1's
+    launches on the path.
+    """
+    import os
+    import signal
+    import tempfile
+
+    import repro_torch.core.serving as serving_mod
+    from repro_torch.core import (
+        CopyConfig,
+        DetectionService,
+        DetectRequest,
+        DurabilityOptions,
+        ReplicaRouter,
+        build_index,
+        index_detect_exact,
+    )
+    from repro_torch.core.types import ClaimsDataset
+    from repro_torch.data.claims import (
+        book_full_spec,
+        oracle_claim_probs,
+        synthetic_claims,
+        synthetic_query_rows,
+    )
+
+    cuda = dev.type == "cuda"
+    cfg = CopyConfig(**SERVICE_CFG)
+    t0 = time.perf_counter()
+    sc = synthetic_claims(spec or book_full_spec(seed=0))
+    ds, p = sc.dataset, oracle_claim_probs(sc)
+    S0, D = ds.n_sources, ds.n_items
+    q, n_req = SERVICE_ROWS, SERVICE_REQUESTS
+    vals, acc, pq, origins = synthetic_query_rows(sc, n_req * q, seed=1)
+
+    wave = [DetectRequest(rid=i, values=vals[i * q:(i + 1) * q],
+                          accuracy=acc[i * q:(i + 1) * q],
+                          p_claim=pq[i * q:(i + 1) * q])
+            for i in range(n_req)]
+    union = ClaimsDataset(values=np.concatenate([ds.values, vals]),
+                          accuracy=np.concatenate([ds.accuracy, acc]))
+    up = np.concatenate([p, pq])
+    t1 = time.perf_counter()
+    exact = index_detect_exact(union, up, cfg,
+                               index=build_index(union, up, cfg, device=dev))
+    log(f"[19] S={S0} D={D}, {n_req} requests of {q} rows; data "
+        f"{t1 - t0:.3f} s, exact INDEX over the {S0 + n_req * q} rows "
+        f"{time.perf_counter() - t1:.3f} s ({len(exact.copying_pairs())} "
+        f"copying pairs)")
+    del union, up
+    tmp = tempfile.TemporaryDirectory(prefix="cd-phase19-")
+    state = os.path.join(tmp.name, "state")
+    try:
+        # -- (a) serve the wave through the worker thread ------------------
+        t0 = time.perf_counter()
+        svc = DetectionService(
+            ds, p, cfg, mode="bucketed", max_batch_requests=SERVICE_BATCH,
+            max_pending_rows=SERVICE_PENDING, device=dev,
+            durability=DurabilityOptions(
+                state_dir=state, snapshot_every=SERVICE_SNAPSHOT_EVERY))
+        build_s = time.perf_counter() - t0
+        passes, timers = [], {"commit": [], "rollback": [], "snapshot": []}
+        orig = {"detect": svc.engine.detect,
+                "commit_rows": serving_mod.commit_rows,
+                "rollback_commit": serving_mod.rollback_commit,
+                "write_snapshot": serving_mod.write_snapshot}
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                out = fn(*a, **kw)
+                dt = time.perf_counter() - t
+                # a snapshot's bytes are read now: retention prunes it later
+                timers[name].append((dt, os.path.getsize(out)
+                                     if name == "snapshot" else None))
+                return out
+            return call
+
+        def detect(*a, **kw):
+            res = orig["detect"](*a, **kw)
+            passes.append(dict(svc.engine.last_stats))
+            return res
+
+        # the pass's stats and the transient commit's seconds, read around
+        # the service's own calls for this measurement only
+        svc.engine.detect = detect
+        serving_mod.commit_rows = timed("commit", orig["commit_rows"])
+        serving_mod.rollback_commit = timed("rollback",
+                                            orig["rollback_commit"])
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.tile_scores.launches = 0          # count this path's launches
+        try:
+            first, wall = _wave(svc, wave)
+        finally:
+            svc.engine.detect = orig["detect"]
+            serving_mod.commit_rows = orig["commit_rows"]
+            serving_mod.rollback_commit = orig["rollback_commit"]
+        launches_a = ops.tile_scores.launches
+        launches_passes = sum(s["kernel_launches"] for s in passes)
+        if cuda and (launches_a <= 0 or launches_a != launches_passes):
+            raise AssertionError(f"19a: B1 launches {launches_a}, the passes' "
+                                 f"last_stats {launches_passes}")
+        for i, resp in enumerate(first):
+            rows = slice(S0 + i * q, S0 + (i + 1) * q)
+            if not (np.array_equal(resp.copying, exact.copying[rows, :S0])
+                    and np.array_equal(resp.intra_copying,
+                                       exact.copying[rows, rows])):
+                raise AssertionError(f"19a: request {i} decides differently "
+                                     f"from the exact INDEX over the union")
+        planted = [(r, int(o)) for r, o in enumerate(origins) if o >= 0]
+        found = sum(int(first[r // q].copying[r % q, o]) for r, o in planted)
+        lat = np.array([r.latency_s for r in first])
+        st = svc.stats
+        tc = [t for t, _ in timers["commit"]]
+        tr = [t for t, _ in timers["rollback"]]
+        log(f"[19a] {n_req} requests in {wall:.3f} s ({n_req / wall:.3f} "
+            f"req/s); latency p50 {np.percentile(lat, 50):.3f} s p99 "
+            f"{np.percentile(lat, 99):.3f} s; queue wait p50 "
+            f"{st.queue_wait_p50:.3f} s p99 {st.queue_wait_p99:.3f} s; "
+            f"{st.batches} engine passes, mean batch {st.mean_batch:.2f}; "
+            f"service build {build_s:.3f} s (index + initial snapshot)")
+        log(f"[19a] B1: {launches_a} launches, "
+            f"{sum(s['scan_kernel_ms'] for s in passes):.3f} ms device time "
+            f"over the {len(passes)} passes (per pass: launches "
+            f"{[s['kernel_launches'] for s in passes]}, ms "
+            f"{[round(s['scan_kernel_ms'], 3) for s in passes]}); pass "
+            f"seconds: prologue "
+            f"{[round(s['prologue_s'], 3) for s in passes]}, scan "
+            f"{[round(s['scan_s'], 3) for s in passes]}, finalize "
+            f"{[round(s['finalize_s'], 3) for s in passes]} (rescored pairs "
+            f"{[s['rescored_pairs'] for s in passes]}); mask source "
+            f"{[s['mask_source'] for s in passes]}")
+        log(f"[19a] transient commit {sum(tc):.3f} s / rollback {sum(tr):.3f} "
+            f"s over {len(tc)} passes; staged {st.host_copy_bytes} B of query "
+            f"rows; peak device memory "
+            + (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+               if cuda else "not measured"))
+        log(f"[19a] decisions == exact INDEX over the union, row for row; "
+            f"planted copiers detected {found}/{len(planted)}")
+
+        # -- (b) commit, re-serve, hold against a cache-free restore --------
+        twin = DetectionService(ds, p, cfg, mode="bucketed",
+                                max_pending_rows=SERVICE_PENDING,
+                                result_cache=False, device=dev)
+
+        def commit_both(v, a, pc):
+            t = time.perf_counter()
+            svc.commit(v, a, pc)
+            dt = time.perf_counter() - t
+            twin.commit(v, a, pc)
+            return dt
+
+        def hold_restored(responses, what):
+            t = time.perf_counter()
+            cold = DetectionService.restore(state, result_cache=False,
+                                            device=dev)
+            restore_s = time.perf_counter() - t
+            again, _ = _wave(cold, wave)
+            _same_decisions(np, responses, again, what)
+            return cold.restore_info, restore_s
+
+        serving_mod.write_snapshot = timed("snapshot",
+                                           orig["write_snapshot"])
+        try:
+            accepted = 0
+            commit_s = []                    # seconds of each commit()
+            for req, resp in zip(wave, first):
+                keep = (~resp.copying.any(axis=1)
+                        & ~resp.intra_copying.any(axis=1))
+                if keep.any():
+                    commit_s.append(commit_both(req.values[keep],
+                                                req.accuracy[keep],
+                                                req.p_claim[keep]))
+                    accepted += int(keep.sum())
+            hits0 = svc.stats.cache_hits
+            resend1, _ = _wave(svc, wave)
+            hits1 = svc.stats.cache_hits - hits0
+            if accepted:
+                hold_restored(resend1, "19b (accepted rows)")
+            else:
+                _same_decisions(np, resend1, first, "19b (no commit)")
+            n_accepted_commits = len(commit_s)
+            nv, na, npc, _ = synthetic_query_rows(sc, SERVICE_NEW_SOURCES,
+                                                  p_copier=0.0, seed=2)
+            k = SERVICE_COMMIT_ROWS
+            for i in range(0, SERVICE_NEW_SOURCES, k):
+                commit_s.append(commit_both(nv[i:i + k], na[i:i + k],
+                                            npc[i:i + k]))
+        finally:
+            serving_mod.write_snapshot = orig["write_snapshot"]
+        hits0 = svc.stats.cache_hits
+        resend2, wall2 = _wave(svc, wave)
+        hits2 = svc.stats.cache_hits - hits0
+        info, restore_s = hold_restored(resend2, "19b (new sources)")
+        if hits1 + hits2 <= 0:
+            raise AssertionError("19b: the re-served waves had no cache hit")
+        snaps = timers["snapshot"]
+        log(f"[19b] the CLI's rule accepts {accepted} of {n_req * q} wave rows "
+            f"(no copying found); re-served wave: {hits1} cache hits of "
+            f"{n_req}; then {SERVICE_NEW_SOURCES} new independent sources in "
+            f"{len(commit_s) - n_accepted_commits} commits of {k} rows")
+        log(f"[19b] commit (fsync'd) ms: median "
+            f"{np.median(commit_s) * 1e3:.3f}, max {max(commit_s) * 1e3:.3f} "
+            f"over {len(commit_s)} commits; epoch {svc.epoch}; snapshots "
+            f"written in (s, B): {[(round(t, 3), b) for t, b in snaps]}")
+        log(f"[19b] re-served wave after the commits: {hits2} cache hits, "
+            f"{wall2:.3f} s; both re-serves == a cache-free service restored "
+            f"from the state dir; restore {restore_s:.3f} s (snapshot epoch "
+            f"{info.snapshot_epoch}, {info.replayed_commits} commits "
+            f"replayed in {info.replay_s:.3f} s, load "
+            f"{info.snapshot_load_s:.3f} s)")
+        del resend1, resend2
+
+        # -- (c) kill and restart ----------------------------------------
+        svc._log.close()                 # the child writes the log now
+        del svc
+        gc.collect()
+        cv, ca, cpc, _ = synthetic_query_rows(
+            sc, SERVICE_CHILD_COMMITS * k, p_copier=0.0, seed=3)
+        batches = {"values": cv.reshape(SERVICE_CHILD_COMMITS, k, D),
+                   "accuracy": ca.reshape(SERVICE_CHILD_COMMITS, k),
+                   "p_claim": cpc.reshape(SERVICE_CHILD_COMMITS, k, D)}
+        rows_file = os.path.join(tmp.name, "child_rows.npz")
+        np.savez(rows_file, **batches)
+        n_before, e_before = twin.resident.n_corpus, twin.epoch
+        child = subprocess.Popen(
+            [sys.executable, "-c", _KILL_CHILD, str(ROOT / "src"), state,
+             rows_file, dev.type], stdout=subprocess.PIPE, text=True)
+        acks = []
+        t_child = time.perf_counter()
+        try:
+            for line in child.stdout:
+                if line.startswith("ack"):
+                    acks.append(int(line.split()[1]))
+                    if len(acks) == SERVICE_KILL_AFTER:
+                        child.send_signal(signal.SIGKILL)
+                        break
+        finally:
+            child.kill()
+            child.wait()
+            child.stdout.close()
+        child_s = time.perf_counter() - t_child
+        if len(acks) != SERVICE_KILL_AFTER:
+            raise AssertionError(f"19c: the child acknowledged {acks} before "
+                                 f"it ended (rc {child.returncode})")
+        t = time.perf_counter()
+        svc = DetectionService.restore(state, device=dev)
+        restore_s = time.perf_counter() - t
+        info = svc.restore_info
+        if svc.epoch < acks[-1] or svc.epoch > e_before + SERVICE_CHILD_COMMITS:
+            raise AssertionError(f"19c: restored epoch {svc.epoch}, last "
+                                 f"acknowledged {acks[-1]}")
+        landed = svc.epoch - e_before
+        for j in range(landed):
+            rows = slice(n_before + j * k, n_before + (j + 1) * k)
+            if not (np.array_equal(svc.resident.values[rows],
+                                   batches["values"][j])
+                    and np.array_equal(svc.resident.accuracy[rows],
+                                       batches["accuracy"][j])
+                    and np.array_equal(svc.resident.p_claim[rows],
+                                       batches["p_claim"][j])):
+                raise AssertionError(f"19c: commit {j + 1} of the child is "
+                                     f"not there bit for bit")
+            twin.commit(batches["values"][j], batches["accuracy"][j],
+                        batches["p_claim"][j])
+        probe = wave[:SERVICE_PROBE]
+        got, _ = _wave(svc, probe)
+        want, _ = _wave(twin, probe)
+        _same_decisions(np, got, want, "19c (restored vs twin)")
+        log(f"[19c] child killed after acknowledging epochs {acks} "
+            f"({child_s:.3f} s from spawn); restored epoch {svc.epoch} "
+            f"({landed} child commits landed) in {restore_s:.3f} s: snapshot "
+            f"epoch {info.snapshot_epoch} + {info.replayed_commits} replayed "
+            f"({info.replay_s:.3f} s, "
+            f"{info.replay_s / max(info.replayed_commits, 1) * 1e3:.3f} ms a "
+            f"commit; snapshot load {info.snapshot_load_s:.3f} s), "
+            f"{info.discarded_bytes} torn-tail bytes "
+            f"discarded, {info.skipped_snapshots} snapshots skipped; every "
+            f"acknowledged commit's rows bit for bit; probe wave == the "
+            f"never-restarted twin")
+        del twin
+
+        # -- (d) retract the newest rows, then roll the retraction back ----
+        pre, _ = _wave(svc, probe)
+        n = svc.resident.n_corpus
+        t = time.perf_counter()
+        rinfo = svc.retract(np.arange(n - SERVICE_RETRACT, n))
+        retract_s = time.perf_counter() - t
+        post, _ = _wave(svc, probe)
+        m = svc.resident.n_corpus
+        fresh = DetectionService(
+            ClaimsDataset(values=svc.resident.values[:m].copy(),
+                          accuracy=svc.resident.accuracy[:m].copy()),
+            svc.resident.p_claim[:m].copy(), cfg, mode="bucketed",
+            result_cache=False, device=dev)
+        want, _ = _wave(fresh, probe)
+        _same_decisions(np, post, want, "19d (retracted vs fresh)")
+        del fresh
+        t = time.perf_counter()
+        svc.rollback_last_retract()
+        rollback_s = time.perf_counter() - t
+        back, _ = _wave(svc, probe)
+        _same_decisions(np, back, pre, "19d (rolled back vs before)")
+        log(f"[19d] retracted the {SERVICE_RETRACT} newest rows in "
+            f"{retract_s * 1e3:.3f} ms ({rinfo.touched_entries} entries "
+            f"touched, {rinfo.gc_entries} GC'd); probe wave == a fresh "
+            f"service over the retracted corpus; rollback "
+            f"{rollback_s * 1e3:.3f} ms, probe wave == before the retraction")
+        svc._log.close()
+        del svc, pre, post, back, want
+        gc.collect()
+
+        # -- (e) the shard-owner fleet ------------------------------------
+        t = time.perf_counter()
+        fleet = ReplicaRouter(ds, p, cfg, shard_owners=SERVICE_FLEET_OWNERS,
+                              shard_pack=True, mode="bucketed", device=dev)
+        fleet_build = time.perf_counter() - t
+        eng = fleet.replicas[0].engine
+        owner_launches = [0] * SERVICE_FLEET_OWNERS
+        orig_partial = eng.detect_owner_partial
+
+        def partial(*a, **kw):
+            part = orig_partial(*a, **kw)
+            owner_launches[part.owner] += part.stats.get("kernel_launches", 0)
+            return part
+
+        eng.detect_owner_partial = partial
+        try:
+            reqs = wave[:SERVICE_FLEET_REQUESTS]
+            t = time.perf_counter()
+            out = [fleet.submit(r).result() for r in reqs]
+            fleet_s = time.perf_counter() - t
+        finally:
+            eng.detect_owner_partial = orig_partial
+        _same_decisions(np, out, first[:len(reqs)], "19e (fleet vs 19a)")
+        if cuda and min(owner_launches) <= 0:
+            raise AssertionError(f"19e: an owner launched no B1 "
+                                 f"({owner_launches})")
+        log(f"[19e] {SERVICE_FLEET_OWNERS}-owner fleet (packed): "
+            f"{len(reqs)} requests in {fleet_s:.3f} s "
+            f"({len(reqs) / fleet_s:.3f} req/s, one fan-out pass each), "
+            f"built in {fleet_build:.3f} s; B1 launches an owner "
+            f"{owner_launches}; decisions == 19a's")
+        del fleet, eng, out
+    finally:
+        tmp.cleanup()
+    if cuda:
+        torch.cuda.synchronize()
+    launches = ops.tile_scores.launches
+    if cuda and launches <= 0:
+        raise AssertionError("phase 19: the service launched no B1")
+    gc.collect()
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2145,6 +2603,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 19. the detection service at the Book-full preset -------------------
+    service = phase_service(torch, np, dev, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 7. flash attention vs plain, every case ----------------------------
     flash_worst = phase_flash_cases(torch, dev, ops, ref)
 
@@ -2184,10 +2647,13 @@ def main() -> int:
         "max_abs_err": max(rec["max_abs_err"], worst_single[name]),
         "library_ms": None,
     } for name, line, rec in (("copyscore_err", 89, b2), ("copyscore", 67, b3))]
-    # B1's launches: the full pass's and the sharded fan-out's, added
-    b1["launches"] = b1_pass + sharded["launches"]
+    # B1's launches: the full pass's, the sharded fan-out's and the
+    # service's, added
+    b1["launches"] = b1_pass + sharded["launches"] + service["launches"]
     b1["launches_by_path"] = {"bucketed pass (phase 5)": b1_pass,
-                              "owner fan-out (phase 18)": sharded["launches"]}
+                              "owner fan-out (phase 18)": sharded["launches"],
+                              "detection service (phase 19)":
+                                  service["launches"]}
     record = {"kernels": [{
         "name": "copyscore_fused",
         "route": "cuda",

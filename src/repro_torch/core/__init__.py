@@ -28,6 +28,16 @@ Public API (the slice ported so far):
   OwnerPartial                                  — shard plans and merges
   ShardScanError, SpillCorruptionError,
   SealedShardError                              — shard-plane faults
+  DetectionService, DetectRequest,
+  DetectResponse, serve_batch, ResidentCorpus,
+  ResultCache                                   — batched detection service
+  ReplicaRouter, CircuitBreaker,
+  ReplicaBroadcastError                         — replica / shard-owner fleet
+  ServiceOverloaded, DeadlineExceeded,
+  ServiceStopped, MeshNotPortedError            — typed service refusals
+  DurabilityOptions, CommitLog, CommitRecord,
+  RetractRecord, RestoreInfo,
+  NoValidSnapshotError, ReplayDivergenceError   — commit log and snapshots
 """
 from repro_torch.core.bound import BoundState, bound_detect, hybrid_detect
 from repro_torch.core.bucketed import (
@@ -61,6 +71,21 @@ from repro_torch.core.index import (
 from repro_torch.core.pipeline import ChunkPrefetcher, PipelineStageError
 from repro_torch.core.sampling import sample_by_cell, sample_by_item, scale_sample
 from repro_torch.core.scoring import pairwise_detect
+from repro_torch.core.serving import (
+    CircuitBreaker,
+    DeadlineExceeded,
+    DetectionService,
+    DetectRequest,
+    DetectResponse,
+    MeshNotPortedError,
+    ReplicaBroadcastError,
+    ReplicaRouter,
+    ResidentCorpus,
+    ResultCache,
+    ServiceOverloaded,
+    ServiceStopped,
+    serve_batch,
+)
 from repro_torch.core.shardplan import (
     OwnerPartial,
     SealedShardError,
@@ -90,6 +115,15 @@ from repro_torch.core.types import (
     claim_value_keys,
     pair_f_measure,
 )
+from repro_torch.core.wal import (
+    CommitLog,
+    CommitRecord,
+    DurabilityOptions,
+    NoValidSnapshotError,
+    ReplayDivergenceError,
+    RestoreInfo,
+    RetractRecord,
+)
 
 __all__ = [
     "CopyConfig", "ClaimsDataset", "DetectionResult", "pair_f_measure",
@@ -107,5 +141,11 @@ __all__ = [
     "ShardPlan", "ShardedCorpusStore", "shard_store", "make_shard_plan",
     "rebalance_plan", "merge_shard_partials", "merge_owner_partials",
     "OwnerPartial", "ShardScanError", "SpillCorruptionError",
-    "SealedShardError",
+    "SealedShardError", "DetectRequest", "DetectResponse",
+    "DetectionService", "ReplicaRouter", "ReplicaBroadcastError",
+    "ResidentCorpus", "ResultCache", "serve_batch", "CircuitBreaker",
+    "DeadlineExceeded", "ServiceOverloaded", "ServiceStopped",
+    "MeshNotPortedError", "DurabilityOptions", "CommitLog", "CommitRecord",
+    "RestoreInfo", "NoValidSnapshotError", "ReplayDivergenceError",
+    "RetractRecord",
 ]

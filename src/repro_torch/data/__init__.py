@@ -2,6 +2,7 @@ from repro_torch.data.claims import (
     motivating_example,
     motivating_value_probs,
     synthetic_claims,
+    synthetic_query_rows,
 )
 from repro_torch.data.tokens import (
     Prefetcher,
@@ -11,4 +12,5 @@ from repro_torch.data.tokens import (
 )
 
 __all__ = ["Prefetcher", "TokenCorpus", "batches", "motivating_example",
-           "motivating_value_probs", "synthetic_claims", "synthetic_corpus"]
+           "motivating_value_probs", "synthetic_claims", "synthetic_corpus",
+           "synthetic_query_rows"]

@@ -197,14 +197,89 @@ def synthetic_claims(spec: SyntheticSpec) -> SyntheticClaims:
                            copy_edges=copy_edges)
 
 
-def oracle_claim_probs(sc: SyntheticClaims) -> np.ndarray:
-    """Claim-probability matrix assuming oracle knowledge of the truth:
-    value 0 (truth) w.p. .95, others .02 — used for single-round passes."""
-    values = sc.dataset.values
+def book_cs_spec(seed: int = 0) -> SyntheticSpec:
+    """~Table V Book-CS scale: 894 sources × 2,528 items, long-tail."""
+    return SyntheticSpec(n_sources=894, n_items=2528, coverage="book",
+                         n_cliques=25, clique_size=3, seed=seed)
+
+
+def stock_1day_spec(seed: int = 0) -> SyntheticSpec:
+    """~Table V Stock-1day scale: 55 sources × 16,000 items, dense."""
+    return SyntheticSpec(n_sources=55, n_items=16000, coverage="stock",
+                         n_cliques=6, clique_size=3, seed=seed)
+
+
+def book_full_spec(seed: int = 0) -> SyntheticSpec:
+    """~Table V Book-full scale: 3,182 sources × 20,000 items, long-tail."""
+    return SyntheticSpec(n_sources=3182, n_items=20000, coverage="book",
+                         n_cliques=60, clique_size=3, seed=seed)
+
+
+def stock_2wk_spec(seed: int = 0) -> SyntheticSpec:
+    """~Table V Stock-2wk scale: 55 sources × 80,000 items, dense."""
+    return SyntheticSpec(n_sources=55, n_items=80000, coverage="stock",
+                         n_cliques=6, clique_size=3, seed=seed)
+
+
+def _oracle_probs(values: np.ndarray) -> np.ndarray:
+    """Oracle truth prior per claim: value 0 (truth) w.p. .95, others .02."""
     return np.where(values == 0, 0.95,
                     np.where(values > 0, 0.02, 0.0)).astype(np.float32)
 
 
+def oracle_claim_probs(sc: SyntheticClaims) -> np.ndarray:
+    """Claim-probability matrix assuming oracle knowledge of the truth:
+    value 0 (truth) w.p. .95, others .02 — used for single-round passes."""
+    return _oracle_probs(sc.dataset.values)
+
+
+def synthetic_query_rows(
+    sc: SyntheticClaims,
+    n_rows: int,
+    copy_fraction: float = 0.7,
+    p_copier: float = 0.6,
+    items_per_row: int = 24,
+    seed: int = 0,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Query-source rows for the serving layer (``core/serving.py``).
+
+    Each row is either a *copier* (with probability ``p_copier``: it copies
+    ``copy_fraction`` of a random corpus source's claims and fills the rest
+    independently) or an independent source claiming ``items_per_row``
+    random items. Value coding and claim probabilities match the corpus
+    (``oracle_claim_probs``), so rows can be stacked straight under it. The
+    numpy draws are the JAX package's, so one seed gives the same rows in
+    both packages.
+
+    Returns ``(values, accuracy, p_claim, origins)`` with shapes
+    ((n_rows, D), (n_rows,), (n_rows, D), (n_rows,)); ``origins[r]`` is the
+    corpus source row r copies, or −1 for independent rows.
+    """
+    rng = np.random.default_rng(seed)
+    ds = sc.dataset
+    D = ds.n_items
+    n_false = int(max(ds.values.max(), 1))
+    values = -np.ones((n_rows, D), dtype=np.int32)
+    accuracy = rng.uniform(0.35, 0.95, n_rows).astype(np.float32)
+    origins = np.full(n_rows, -1, dtype=np.int32)
+    for r in range(n_rows):
+        if rng.random() < p_copier:
+            o = int(rng.integers(0, ds.n_sources))
+            o_idx = np.nonzero(ds.values[o] >= 0)[0]
+            take = o_idx[rng.random(o_idx.size) < copy_fraction]
+            values[r, take] = ds.values[o, take]
+            origins[r] = o
+            fill = rng.choice(D, size=min(6, D), replace=False)
+        else:
+            fill = rng.choice(D, size=min(items_per_row, D), replace=False)
+        fill = fill[values[r, fill] < 0]
+        correct = rng.random(fill.size) < accuracy[r]
+        values[r, fill] = np.where(
+            correct, 0, rng.integers(1, n_false + 1, size=fill.size))
+    return values, accuracy, _oracle_probs(values), origins
+
+
 __all__ = ["GROUND_TRUTH_COPIES", "SyntheticClaims", "SyntheticSpec",
-           "motivating_example", "motivating_value_probs",
-           "oracle_claim_probs", "synthetic_claims"]
+           "book_cs_spec", "book_full_spec", "motivating_example",
+           "motivating_value_probs", "oracle_claim_probs", "stock_1day_spec",
+           "stock_2wk_spec", "synthetic_claims", "synthetic_query_rows"]
