@@ -4,7 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's paths on the card — the detection pass
-``repro_torch.core.DetectionEngine(mode="bucketed").detect``, the batched
+``repro_torch.core.DetectionEngine(mode="bucketed").detect``, iterative
+truth finding ``repro_torch.core.truth_finding`` with fusion weights and
+fusion-weighted training, the batched
 detection service ``repro_torch.core.DetectionService`` with its commit
 log, snapshots, restore and shard-owner fleet, and the
 engine's other modes (``bound``, ``bound+``, ``hybrid``, ``incremental``,
@@ -16,7 +18,8 @@ plane with the engine's shard-owner fan-out, the LM serving path
 ``repro_torch.runtime.ServeLoop``, and the LM training path
 ``repro_torch.runtime.train`` — and checks them phase by phase; any
 failure exits non-zero. Phases 18 and 13–17 run right after phase 6, while
-the full pass's store is still in memory; then phase 19, then phases 7–12.
+the full pass's store is still in memory; then phases 19 and 20, then
+phases 7–12.
 Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -176,7 +179,24 @@ Phases:
      like a fresh service over the retracted corpus, and its rollback like
      before it; (e) the wave's first 8 requests through a 4-owner packed
      ``ReplicaRouter`` fleet (one fan-out pass a request, ~4.5 s each)
-     decide like (a), B1's launches an owner and the fleet's req/s.
+     decide like (a), B1's launches an owner and the fleet's req/s;
+ 20. iterative truth finding at the Book-full preset with the same
+     ``CopyConfig``: (a) ``truth_finding`` for all 6 rounds through a
+     callable detector wrapping one ``DetectionEngine(mode="bucketed")``
+     (B1 on every round): the rounds, each round's detection seconds, B1
+     launches and device ms, and vote seconds, and the peak device memory;
+     the last round's decisions equal ``index_detect_exact`` on the inputs
+     the wrapper captured; (b) one vote round on those inputs, the sparse
+     co-provider sum (``vote_round``) against the dense ``(L ⊙ H) @ V_all``
+     (``vote_round_dense``): ``p_entry`` and the accuracies within rtol
+     2e-5 / atol 1e-4, both timed; (c) ``truth_finding(detector=
+     "incremental")``: the last round's F against a bucketed pass on its
+     inputs ≥ 0.95, and the mean |Δ accuracy| against (a) < 0.05; (d) the
+     fusion accuracy and planted-pair recall of (a) and (c), printed; (e)
+     ``fusion_weights`` of the fusion-weighted example's corpus on the card
+     equal to the CPU's (document weights and decisions; source weights
+     within the same bar), then ``launch.train --reduced --fusion-weighted``
+     for 4 steps with finite losses.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -2318,6 +2338,273 @@ def phase_service(torch, np, dev, ops, spec=None) -> dict:
     return {"launches": launches}
 
 
+
+# phase 20: iterative truth finding at the repo's Book-full preset
+# (``book_full_spec``), with the detect CLI's CopyConfig (SERVICE_CFG)
+TRUTH_ROUNDS = 6               # max_rounds of (a) and (c)
+# (a) and (c) run every round: at the default tol (5e-4) Book-full stops
+# after round 1 (no accuracy moves by 5e-4), which leaves the incremental
+# detector's rounds unrun
+TRUTH_TOL = 0.0
+TRUTH_F_MIN = 0.95             # (c) against a bucketed pass (phase 17's bar)
+TRUTH_ACC_DELTA = 0.05         # (c) mean |Δ accuracy| against (a), JAX's bar
+VOTE_RTOL, VOTE_ATOL = 2e-5, 1e-4          # (b), ROADMAP C4
+# (e) the fusion-weighted example's corpus, and the train CLI's arguments
+FUSION_CORPUS = dict(n_sources=24, docs_per_source=40, doc_len=128,
+                     vocab_size=512, n_copiers=8, seed=0)
+FUSION_TRAIN_ARGS = ["--reduced", "--fusion-weighted", "--steps", "4",
+                     "--batch", "4", "--seq", "128"]
+
+
+def _close(torch, got, want, what):
+    """Raise unless ``got`` is within VOTE_RTOL / VOTE_ATOL of ``want``;
+    the largest absolute difference."""
+    err = (got - want).abs()
+    if bool((err > VOTE_ATOL + VOTE_RTOL * want.abs()).any()):
+        raise AssertionError(f"{what}: max |Δ| {float(err.max()):.3e} over "
+                             f"rtol {VOTE_RTOL} / atol {VOTE_ATOL}")
+    return float(err.max())
+
+
+def phase_truth(torch, np, dev, ops, spec=None) -> dict:
+    """Phase 20: iterative truth finding on the card at the Book-full preset.
+
+    (a) ``truth_finding`` with a callable detector wrapping one
+    ``DetectionEngine(mode="bucketed")`` (B1 on every round), all six
+    rounds (``TRUTH_TOL``): the rounds,
+    each round's detection seconds, B1 launches and device ms, the vote
+    seconds (the wall time less detection) and the peak device memory; the
+    last round's decisions equal ``index_detect_exact`` on the inputs the
+    wrapper captured. (b) One vote round on (a)'s last inputs: the sparse
+    co-provider sum against ``vote_round_dense`` within the C4 bar, both
+    timed. (c) ``truth_finding(detector="incremental")``: the last round's
+    F against a bucketed pass on its inputs ≥ 0.95, and the mean |Δ
+    accuracy| against (a) < 0.05. (d) ``fusion_accuracy`` of (a) and (c)
+    and the planted-pair recall, printed. (e) ``fusion_weights`` on the
+    card against the CPU in this process (equal document weights and
+    decisions, source weights within the C4 bar), then the train CLI with
+    ``--fusion-weighted`` for 4 reduced steps: finite losses. Returns B1's
+    launches in (a).
+    """
+    from repro_torch.core import (
+        CopyConfig,
+        DetectionEngine,
+        build_index,
+        fusion_accuracy,
+        index_detect_exact,
+        truth_finding,
+    )
+    from repro_torch.core.truthfind import (
+        claim_pairs,
+        vote_round,
+        vote_round_dense,
+    )
+    from repro_torch.core.types import ClaimsDataset, pair_f_measure
+    from repro_torch.data.claims import book_full_spec, synthetic_claims
+    from repro_torch.data.fusion_weights import fusion_weights
+    from repro_torch.data.tokens import synthetic_corpus
+    from repro_torch.launch import train as train_cli
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    if cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 20: the dense reference needs TF32 off")
+    cfg = CopyConfig(**SERVICE_CFG)
+    t0 = time.perf_counter()
+    sc = synthetic_claims(spec or book_full_spec(seed=0))
+    ds = sc.dataset
+    log(f"[20] S={ds.n_sources} D={ds.n_items} claims "
+        f"{int((ds.values >= 0).sum())}, data {time.perf_counter() - t0:.3f} s")
+
+    # -- (a) truth finding with the bucketed engine on every round ----------
+    engine = DetectionEngine(cfg, mode="bucketed", device=dev)
+    rounds, last = [], {}
+
+    def detect(work, p_claim, cfg_, **kw):
+        n0 = ops.tile_scores.launches
+        t = time.perf_counter()
+        res = engine.detect(work, p_claim)
+        sync()
+        st = engine.last_stats
+        rounds.append({"start": t, "detect_s": time.perf_counter() - t,
+                       "launches": ops.tile_scores.launches - n0,
+                       "kernel_ms": st["scan_kernel_ms"],
+                       "copying": len(res.copying_pairs())})
+        last.update(acc=work.accuracy.copy(), p=p_claim, copying=res.copying)
+        return res
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    ops.tile_scores.launches = 0              # count this path's launches
+    t0 = time.perf_counter()
+    fa = truth_finding(ds, cfg, detector=detect, max_rounds=TRUTH_ROUNDS,
+                       tol=TRUTH_TOL, device=dev)
+    t_end = time.perf_counter()
+    launches = ops.tile_scores.launches
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB" if cuda
+            else "not measured")
+    if fa.rounds != TRUTH_ROUNDS or len(rounds) != fa.rounds:
+        raise AssertionError(f"20a: {fa.rounds} rounds, {len(rounds)} "
+                             f"detections, {TRUTH_ROUNDS} asked")
+    if cuda and (min(r["launches"] for r in rounds) <= 0
+                 or launches != sum(r["launches"] for r in rounds)):
+        raise AssertionError(f"20a: B1 launches by round "
+                             f"{[r['launches'] for r in rounds]}, {launches} "
+                             f"in all")
+    if not (np.isfinite(fa.accuracy).all() and np.isfinite(fa.p_entry).all()
+            and fa.p_entry.shape == fa.groups.entry_item.shape):
+        raise AssertionError("20a: accuracies or value probabilities are not "
+                             "finite of the expected shape")
+    ends = [r["start"] for r in rounds[1:]] + [t_end]
+    vote_s = [e - r["start"] - r["detect_s"] for r, e in zip(rounds, ends)]
+    detect_s = sum(r["detect_s"] for r in rounds)
+    log(f"[20a] truth finding, detector = bucketed engine: {fa.rounds} rounds "
+        f"in {t_end - t0:.3f} s (value groups, claim pairs and round 0 "
+        f"{rounds[0]['start'] - t0:.3f} s; E_all "
+        f"{len(fa.groups.entry_item)}); detection {detect_s:.3f} s, "
+        f"{detect_s / (t_end - t0):.1%} of it; peak device memory {peak}")
+    for i, (r, v) in enumerate(zip(rounds, vote_s)):
+        log(f"[20a] round {i + 1}: detection {r['detect_s']:.3f} s (B1 "
+            f"{r['launches']} launches, {r['kernel_ms']:.3f} ms), vote "
+            f"{v:.3f} s, copying pairs {r['copying']}")
+
+    t = time.perf_counter()
+    work = ClaimsDataset(values=ds.values, accuracy=last["acc"])
+    exact = index_detect_exact(work, last["p"], cfg,
+                               index=build_index(work, last["p"], cfg,
+                                                 device=dev))
+    if not np.array_equal(exact.copying, last["copying"]):
+        raise AssertionError("20a: the last round's decisions differ from "
+                             "the exact INDEX on its inputs")
+    log(f"[20a] last round's decisions == exact INDEX on its inputs "
+        f"({len(exact.copying_pairs())} copying pairs; "
+        f"{time.perf_counter() - t:.3f} s)")
+    del exact
+
+    # -- (b) one vote round: the sparse sum against the dense formula -------
+    acc = torch.from_numpy(last["acc"]).to(dev)
+    pr_copy = torch.from_numpy(
+        (1.0 - fa.detection.pr_independent).astype(np.float32)).to(dev)
+    t = time.perf_counter()
+    cp = claim_pairs(fa.groups, dev)
+    cp_s = time.perf_counter() - t
+    pairs = sum(m for _, _, m in cp.chunks)
+
+    def timed(fn, reps):
+        out = fn()                              # warm-up, and the result
+        sync()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        sync()
+        return out, (time.perf_counter() - t) / reps
+
+    (sp_p, sp_acc), sparse_s = timed(
+        lambda: vote_round(cp, acc, pr_copy, cfg.n, cfg.c), 3)
+    t = time.perf_counter()
+    fa.groups.V_all                            # built once, on the host
+    v_all_s = time.perf_counter() - t
+    (de_p, de_acc), dense_s = timed(
+        lambda: vote_round_dense(fa.groups, acc, pr_copy, cfg.n, cfg.c), 1)
+    err_p = _close(torch, sp_p, de_p, "20b p_entry")
+    err_a = _close(torch, sp_acc, de_acc, "20b accuracies")
+    S, E = ds.n_sources, len(fa.groups.entry_item)
+    log(f"[20b] one vote round (S={S}, E_all={E}, {cp.src.shape[0]} claims, "
+        f"{pairs} co-provider terms in {len(cp.chunks)} chunks): sparse "
+        f"{sparse_s * 1e3:.3f} ms, dense (L⊙H)@V_all {dense_s * 1e3:.3f} ms "
+        f"({2 * S * S * E / 1e12:.2f} TFLOP float32; V_all "
+        f"{S * E / 1e9:.2f} GB uint8 built in {v_all_s:.3f} s on the host); "
+        f"claim pairs to the device {cp_s:.3f} s; max |Δ| p_entry "
+        f"{err_p:.3e}, accuracies {err_a:.3e} (≤ rtol {VOTE_RTOL} / atol "
+        f"{VOTE_ATOL})")
+    del cp, sp_p, sp_acc, de_p, de_acc, acc, pr_copy
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+
+    # -- (c) the incremental detector ---------------------------------------
+    calls, captured = [], {}
+    orig_detect = DetectionEngine.detect
+
+    def capture(self, ds_, p_, *a, **kw):
+        captured.update(acc=ds_.accuracy.copy(), p=p_)
+        t = time.perf_counter()
+        res = orig_detect(self, ds_, p_, *a, **kw)
+        sync()
+        calls.append((self.mode, time.perf_counter() - t))
+        return res
+
+    DetectionEngine.detect = capture
+    try:
+        t0 = time.perf_counter()
+        fc = truth_finding(ds, cfg, detector="incremental",
+                           max_rounds=TRUTH_ROUNDS, tol=TRUTH_TOL,
+                           device=dev)
+        inc_s = time.perf_counter() - t0
+    finally:
+        DetectionEngine.detect = orig_detect
+    ref = engine.detect(ClaimsDataset(values=ds.values,
+                                      accuracy=captured["acc"]),
+                        captured["p"])
+    _, _, f = pair_f_measure(fc.detection.copying_pairs(),
+                             ref.copying_pairs())
+    d_acc = float(np.abs(fc.accuracy - fa.accuracy).mean())
+    log(f"[20c] incremental: {fc.rounds} rounds in {inc_s:.3f} s "
+        f"({inc_s / fc.rounds:.3f} s a round; detection "
+        f"{fc.detect_time_s:.3f} s: "
+        f"{', '.join(f'{m} {s:.3f}' for m, s in calls)}); last round F "
+        f"{f:.4f} against a bucketed pass on its inputs (≥ {TRUTH_F_MIN}); "
+        f"mean |Δ accuracy| against (a) {d_acc:.4f} (< {TRUTH_ACC_DELTA})")
+    if f < TRUTH_F_MIN or d_acc >= TRUTH_ACC_DELTA:
+        raise AssertionError(f"20c: F {f:.4f} or mean |Δ accuracy| "
+                             f"{d_acc:.4f} out of bounds")
+    del ref, captured
+
+    # -- (d) fusion quality, printed --------------------------------------
+    for tag, res in (("a", fa), ("c", fc)):
+        found = res.detection.copying_pairs()
+        log(f"[20d] ({tag}) fusion accuracy "
+            f"{fusion_accuracy(res, ds, sc.true_values):.4f}; planted-pair "
+            f"recall {len(found & sc.copies) / len(sc.copies):.4f} "
+            f"({len(found & sc.copies)}/{len(sc.copies)}), copying pairs "
+            f"{len(found)}")
+    del fa, fc
+    gc.collect()
+
+    # -- (e) fusion weights on the card, then fusion-weighted training ------
+    corpus = synthetic_corpus(**FUSION_CORPUS)
+    t = time.perf_counter()
+    src_w, doc_w, res = fusion_weights(corpus, device=dev)
+    fw_s = time.perf_counter() - t
+    src_c, doc_c, res_c = fusion_weights(corpus, device="cpu")
+    err = _close(torch, torch.from_numpy(src_w), torch.from_numpy(src_c),
+                 "20e source weights")
+    if not (np.array_equal(doc_w, doc_c)
+            and np.array_equal(res.detection.copying,
+                               res_c.detection.copying)):
+        raise AssertionError("20e: document weights or decisions on the card "
+                             "differ from the CPU's")
+    log(f"[20e] fusion_weights on the card {fw_s:.3f} s ({res.rounds} "
+        f"rounds, {len(res.detection.copying_pairs())} copying pairs): == "
+        f"the CPU's (document weights and decisions equal, source weights "
+        f"max |Δ| {err:.3e})")
+    t = time.perf_counter()
+    state, history = train_cli.main(FUSION_TRAIN_ARGS + ["--device", str(dev)])
+    losses = [h["loss"] for h in history]
+    if len(losses) != 4 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"20e: fusion-weighted training losses {losses}")
+    log(f"[20e] train CLI {' '.join(FUSION_TRAIN_ARGS)}: {len(losses)} steps "
+        f"in {time.perf_counter() - t:.3f} s, losses "
+        f"{[round(x, 4) for x in losses]}")
+    del state, history
+    gc.collect()
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2608,6 +2895,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- 20. iterative truth finding at the Book-full preset -----------------
+    truth = phase_truth(torch, np, dev, ops)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 7. flash attention vs plain, every case ----------------------------
     flash_worst = phase_flash_cases(torch, dev, ops, ref)
 
@@ -2647,13 +2939,14 @@ def main() -> int:
         "max_abs_err": max(rec["max_abs_err"], worst_single[name]),
         "library_ms": None,
     } for name, line, rec in (("copyscore_err", 89, b2), ("copyscore", 67, b3))]
-    # B1's launches: the full pass's, the sharded fan-out's and the
-    # service's, added
-    b1["launches"] = b1_pass + sharded["launches"] + service["launches"]
+    # B1's launches: the full pass's, the sharded fan-out's, the service's
+    # and truth finding's, added
     b1["launches_by_path"] = {"bucketed pass (phase 5)": b1_pass,
                               "owner fan-out (phase 18)": sharded["launches"],
                               "detection service (phase 19)":
-                                  service["launches"]}
+                                  service["launches"],
+                              "truth finding (phase 20)": truth["launches"]}
+    b1["launches"] = sum(b1["launches_by_path"].values())
     record = {"kernels": [{
         "name": "copyscore_fused",
         "route": "cuda",

@@ -38,6 +38,8 @@ Public API (the slice ported so far):
   DurabilityOptions, CommitLog, CommitRecord,
   RetractRecord, RestoreInfo,
   NoValidSnapshotError, ReplayDivergenceError   — commit log and snapshots
+  truth_finding, fusion_accuracy                — iterative fusion driver
+  fagin_input                                   — NRA baseline (Table X)
 """
 from repro_torch.core.bound import BoundState, bound_detect, hybrid_detect
 from repro_torch.core.bucketed import (
@@ -46,6 +48,7 @@ from repro_torch.core.bucketed import (
     pad_buckets,
 )
 from repro_torch.core.engine import DetectionEngine, EngineOptions
+from repro_torch.core.fagin import fagin_input
 from repro_torch.core.incremental import (
     IncrementalState,
     incremental_detect,
@@ -108,6 +111,7 @@ from repro_torch.core.store import (
     unpack_membership,
 )
 from repro_torch.core.tilecache import BlockOrCache
+from repro_torch.core.truthfind import fusion_accuracy, truth_finding
 from repro_torch.core.types import (
     ClaimsDataset,
     CopyConfig,
@@ -147,5 +151,5 @@ __all__ = [
     "DeadlineExceeded", "ServiceOverloaded", "ServiceStopped",
     "MeshNotPortedError", "DurabilityOptions", "CommitLog", "CommitRecord",
     "RestoreInfo", "NoValidSnapshotError", "ReplayDivergenceError",
-    "RetractRecord",
+    "RetractRecord", "truth_finding", "fusion_accuracy", "fagin_input",
 ]

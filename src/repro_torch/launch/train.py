@@ -9,8 +9,10 @@ recompute under ``remat`` and the backward, AdamW, checkpoint/restart.
 ``--reduced`` trains a smoke-test size (2 layers, d_model 256, head_dim
 64); ``--device cpu`` runs the plain PyTorch path. The corpus's documents
 hold ``--seq`` + 1 tokens, so every row trains on ``--seq`` tokens.
-``--fusion-weighted`` (source weights from copy detection) waits for the
-port of fusion weighting (ROADMAP A12).
+``--fusion-weighted`` first runs copy detection and truth finding over the
+corpus's content-hashed spans (``data/fusion_weights.py``, on the same
+device) and samples documents by the source and duplication weights it
+derives.
 """
 from __future__ import annotations
 
@@ -29,13 +31,9 @@ def main(argv=None):
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=50)
     ap.add_argument("--fusion-weighted", action="store_true",
-                    help="derive source weights via copy detection first "
-                         "(not ported yet)")
+                    help="derive source weights via copy detection first")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.fusion_weighted:
-        raise NotImplementedError("--fusion-weighted needs the port of "
-                                  "fusion weighting (ROADMAP A12)")
 
     import torch
 
@@ -52,7 +50,14 @@ def main(argv=None):
 
     corpus = synthetic_corpus(vocab_size=cfg.vocab_size, doc_len=args.seq + 1,
                               seed=0)
-    data = batches(corpus, args.batch, args.seq)
+    src_w = doc_w = None
+    if args.fusion_weighted:
+        from repro_torch.data.fusion_weights import fusion_weights
+        src_w, doc_w, _ = fusion_weights(corpus, device=args.device)
+        print(f"[train] fusion weights: src range "
+              f"[{src_w.min():.2f}, {src_w.max():.2f}]")
+    data = batches(corpus, args.batch, args.seq, source_weights=src_w,
+                   doc_weights=doc_w)
     if args.grad_accum > 1:
         base = data
 

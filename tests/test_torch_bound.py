@@ -9,6 +9,7 @@ rtol 2e-5 / atol 1e-4 (ROADMAP C4); Pr(⊥) within 1e-6 (C3). The paper's
 own checks (Ex. 4.2, BOUND+ against BOUND, the quality gates against
 PAIRWISE) are ported beside them.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 import torch

@@ -5,6 +5,7 @@ source includes (through other headers too) and the nvcc flags, so an
 edited header can never load a stale library. nvcc is never called here:
 the tests look at target paths, at the build log and at ptxas's report.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import pytest
 
 from repro_torch.kernels import _build

@@ -15,6 +15,7 @@ not a different formula.
 The JAX package is imported inside the tests that compare with it, so the
 card-only tests (``-m gpu``) also run where JAX is not installed.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 import torch

@@ -1,6 +1,7 @@
 """The port's data generators give the JAX package's arrays: the same
 ``SyntheticSpec`` seed → identical values, accuracies, planted copies and
 oracle claim probabilities; the motivating example is identical."""
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 

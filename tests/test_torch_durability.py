@@ -13,6 +13,7 @@ the JAX service, deciding alike; a JAX manifest of a multi-card engine is
 refused with ``MeshNotPortedError``, and no manifest carries the device.
 The ``gpu`` case restores a state dir written on the card on the CPU.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import json
 import os
 

@@ -6,6 +6,7 @@ decisions, against the JAX engine's own prologue (numpy) and against its
 finalize fed the same grids. ``pairwise`` and ``exact`` are held against
 their JAX counterparts directly.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 import torch

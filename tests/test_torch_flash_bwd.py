@@ -24,6 +24,7 @@ softmax another way (through the normalised probabilities, not from lse).
 The JAX package is imported inside the tests that compare with it, so the
 card-only tests (``-m gpu``) also run where JAX is not installed.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 import torch

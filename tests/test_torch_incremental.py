@@ -7,6 +7,7 @@ per-entry bookkeeping exact; C→ and Ĉ within rtol 2e-5 / atol 1e-4
 (ROADMAP C4); Pr(⊥) within 1e-6 (C3). The paper's big-change flip
 (Ex. 5.1) and the engine's round lifecycle are checked beside them.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 

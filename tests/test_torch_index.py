@@ -2,6 +2,7 @@
 package's on the motivating example and the S=96 world of
 tests/test_engine.py; an index loaded from the JAX package's state_dict
 gives the same engine chunks without a rebuild."""
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 

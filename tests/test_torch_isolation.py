@@ -1,5 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch`` and not
 ``chip_smoke.py`` imports JAX or anything of the JAX package ``repro``."""
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import ast
 import pathlib
 

@@ -15,6 +15,7 @@ Tolerance: logits and caches within rtol/atol 2e-5. Both sides run float32
 throughout; they differ only in the order XLA and PyTorch sum the products
 (observed ≤ 3e-6 on logits of magnitude ≈ 1). Greedy tokens must be equal.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

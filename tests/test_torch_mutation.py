@@ -12,6 +12,7 @@ scores within rtol 2e-5 / atol 1e-4 (ROADMAP C4). Decisions are held
 against ``index_detect_exact``, never against the JAX package's tiled engine
 (ROADMAP C1).
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 import torch

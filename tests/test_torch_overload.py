@@ -8,6 +8,7 @@ fault helpers below (the JAX harness patches ``repro.core.serving`` and so
 cannot drive the port). No real overload is needed: the service's clock is
 injectable and the engine pass is wrapped.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import contextlib
 import sys
 import threading

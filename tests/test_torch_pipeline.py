@@ -7,6 +7,7 @@ with the engine still reusable, a slow stage. The engine's scan through the
 at depths 0, 1 and 2 — also when the kernel is slower than the staging, so
 the producer has to wait for a slot still being read.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import threading
 import time
 

@@ -14,6 +14,7 @@ log, and the replicas restore independently; ``rebalance`` re-splits a
 skewed plan and decides like a fresh build. The breaker's eject/rejoin
 cycle and the all-open refusal are in ``test_torch_overload.py``.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import os
 
 import numpy as np

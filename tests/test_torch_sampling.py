@@ -10,6 +10,7 @@ sweep and rescore are held against the JAX engine's
 set: decisions, the candidate set, the sweep's statistics and the counters
 exact, C→ within rtol 2e-5 / atol 1e-4 (ROADMAP C4).
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import time
 
 import numpy as np

@@ -14,6 +14,7 @@ the Table V presets) make the JAX package's arrays from the same seed. The
 state dir and a restore. The ``gpu`` case holds the service on the card
 against the CPU.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 import torch
@@ -285,9 +286,12 @@ def test_resident_store_zero_full_corpus_concat(corpus, requests,
     """The resident buffers kill the per-batch O(S·D) union concat: while
     serving, no np.concatenate builds claims rows (an array on the item
     axis) longer than the query rows of one batch, the engine sees zero-copy
-    views, and the staged bytes are the query rows'. (The port's entry
-    gather concatenates its nonzero coordinate lists, which are O(nnz) of
-    the index, not claims.)"""
+    views, and the staged bytes are the query rows'. The port's entry
+    gather (``CorpusStore.gather_entries``) concatenates the index's nonzero
+    coordinates instead, 17 B a nonzero (int64 row, int64 column, int8
+    value): so every other concatenation stays within 8 B a nonzero of the
+    index during the pass, the committed index's plus at most two for each
+    claim of the batch (its own, and a corpus singleton it makes shared)."""
     sc, p = corpus
     reqs, _ = requests
     svc = DetectionService(sc.dataset, p, CFG, mode="bucketed",
@@ -301,13 +305,18 @@ def test_resident_store_zero_full_corpus_concat(corpus, requests,
                                      + svc.max_pending_rows)
 
     D = sc.dataset.n_items
-    claim_rows = []
+    store = svc._index.store
+    nnz = sum(int(np.count_nonzero(c[: store.n_rows])) for c in store.chunks)
+    batch_claims = sum(int((r.values >= 0).sum()) for r in reqs)
+    claim_rows, other_bytes = [], []
     orig = np.concatenate
 
     def spy(arrays, *a, **kw):
         out = orig(arrays, *a, **kw)
         if out.ndim == 2 and out.shape[1] == D:
             claim_rows.append(out.shape[0])
+        else:
+            other_bytes.append(out.nbytes)
         return out
 
     monkeypatch.setattr(np, "concatenate", spy)
@@ -316,6 +325,8 @@ def test_resident_store_zero_full_corpus_concat(corpus, requests,
     monkeypatch.undo()
     assert max(claim_rows, default=0) <= sum(r.n_rows for r in reqs), \
         "claims rows of the corpus were concatenated during serving"
+    assert max(other_bytes, default=0) <= 8 * (nnz + 2 * batch_claims), \
+        "a concatenation outgrew the index's nonzero coordinates"
     resp = futs[0].result()
     corpus_bytes = sc.dataset.values.nbytes
     assert 0 < resp.host_copy_bytes < corpus_bytes      # query rows only

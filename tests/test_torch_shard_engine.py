@@ -13,6 +13,7 @@ a commit → retract → commit schedule on a sharded index decides like a
 rebuild. The ``gpu`` case holds the sharded scan on the card against the
 CPU run.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 import torch

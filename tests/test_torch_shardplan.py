@@ -10,6 +10,7 @@ state dicts. Bitpacking, the partial merges, the spill frames (readable
 across packages) and the corrupt-frame fallback are held here too. All of
 it is host numpy in both packages, so the bar is equality.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import os
 import tempfile
 

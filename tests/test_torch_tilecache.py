@@ -10,6 +10,7 @@ cache or from a regather. One schedule also runs through both packages side
 by side (the ``_Twin`` of ``tests/test_torch_mutation.py``) and compares
 the two caches after every step.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 from hypothesis import given, settings

@@ -21,6 +21,7 @@ the tied embedding's, whose two contributions are summed in another order
 (within rtol 1e-6 / atol 1e-7; observed 1.5e-8 on entries up to 0.17,
 one float32 step).
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
 import pytest
 import torch
@@ -339,5 +340,9 @@ def test_train_cli_runs_on_cpu(tmp_path):
     assert int(state["step"]) == 2 and len(history) == 2
     assert all(np.isfinite(h["loss"]) for h in history)
     assert (tmp_path / "step_00000002").is_dir()
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        train_cli.main(["--reduced", "--device", "cpu", "--fusion-weighted"])
+    # --fusion-weighted: truth finding over the corpus, then weighted batches
+    state, history = train_cli.main([
+        "--reduced", "--device", "cpu", "--fusion-weighted", "--steps", "2",
+        "--batch", "2", "--seq", "32"])
+    assert int(state["step"]) == 2 and len(history) == 2
+    assert all(np.isfinite(h["loss"]) for h in history)

@@ -9,6 +9,7 @@ reader, the last append unwinds LIFO, snapshot retention prunes and a
 corrupt newest snapshot falls back to the previous one, and a manifest read
 by the other package returns the same config.
 """
+import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import os
 
 import numpy as np
