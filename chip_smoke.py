@@ -15,11 +15,11 @@ full-square and per-tile copyscore (``repro_torch.kernels.ops.copyscore_store``,
 ``copyscore_tile``), the index's commit/retract path, the row-range shard
 plane with the engine's shard-owner fan-out, the LM serving path
 ``repro_torch.models.Model.prefill`` with
-``repro_torch.runtime.ServeLoop``, and the LM training path
-``repro_torch.runtime.train`` — and checks them phase by phase; any
-failure exits non-zero. Phases 18 and 13–17 run right after phase 6, while
-the full pass's store is still in memory; then phases 19 and 20, then
-phases 7–12.
+``repro_torch.runtime.ServeLoop`` (Llama-3.2-1B, falcon-mamba-7b and
+hymba-1.5b), and the LM training path ``repro_torch.runtime.train`` — and
+checks them phase by phase; any failure exits non-zero. Phases 18 and
+13–17 run right after phase 6, while the full pass's store is still in
+memory; then phases 19 and 20, then phases 7–12, then phase 21.
 Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -196,7 +196,21 @@ Phases:
      ``fusion_weights`` of the fusion-weighted example's corpus on the card
      equal to the CPU's (document weights and decisions; source weights
      within the same bar), then ``launch.train --reduced --fusion-weighted``
-     for 4 steps with finite losses.
+     for 4 steps with finite losses;
+ 21. falcon-mamba-7b (64 Mamba layers) and hymba-1.5b (32 hybrid layers,
+     29 with a window of 1024) at full width and depth, random weights
+     from seed 0 on the card: ``Model.prefill`` in bf16 of 4 × 1024 and
+     4 × 2048 tokens (hymba's through the flash kernel, 32 launches),
+     held against the float32 prefill with the reference attention within
+     bars stated in units of the reference logits' std; the prefill again
+     with the selective scan timed; a bf16 ``ServeLoop`` of 4 slots
+     answering 8 requests, whose last 4 (in reused slots) serve the tokens
+     and the logits, bit for bit, of a fresh 4-slot loop; then
+     the flash kernel at hymba's SWA and full layers against its plain
+     version, timed beside the plain version,
+     ``F.scaled_dot_product_attention`` with the same boolean mask and the
+     bound. B4's ``launches`` add hymba's prefill to Llama's
+     (``launches_by_path``).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -326,6 +340,25 @@ TRAIN_PEAK_LR = 3e-4                 # the default of runtime.train
 TRAIN_LOSS0_BAND = (11.5, 12.8)
 # the last step's loss below the first by at least this much
 TRAIN_LOSS_DROP_MIN = 0.5
+
+# phase 21: falcon-mamba-7b and hymba-1.5b at full width and depth; the
+# bf16 prefill's (batch, length): hymba's 2048 exceeds its window of 1024,
+# so its 29 SWA layers mask
+MAMBA_PREFILL = {"falcon-mamba-7b": (4, 1024), "hymba-1.5b": (4, 2048)}
+# bf16 compute against the float32 reference, last-position logits, in
+# units of the reference logits' std σ (≈ 0.02·√d_model: ≈ 1.3 falcon,
+# ≈ 0.8 hymba): Llama's 16 layers drift ~2 % of σ on average and ~11 % at
+# most (phase 8); falcon's 64 layers may drift twice that; the bars leave
+# 2–4× headroom above it
+MAMBA_BF16_REL_MEAN, MAMBA_BF16_REL_MAX = 0.08, 0.5
+# 8 requests through 4 slots: the first 4 fill every slot, so the last 4
+# land in reused slots (C17) and must serve, logits bit for bit, as they do
+# in a fresh 4-slot loop (a step's rows do not mix, so a row's arithmetic
+# is the same at the same row count). The decode step is host-bound
+# (~70–120 ms), so prompts and outputs are short: the script stays within
+# its limit
+MAMBA_SERVE_PROMPT_LENS = (12, 20, 8, 28, 16, 24, 10, 18)
+MAMBA_SERVE_NEW = 8
 
 
 def log(msg: str) -> None:
@@ -580,22 +613,41 @@ def phase_llama(torch, np, dev, ops) -> dict:
     return {"launches": launches, "prefill_s": prefill_s}
 
 
-def _serve(torch, ServeLoop, Request, model, params, prompts, dtype):
-    """One ServeLoop of ``SERVE_SLOTS`` slots with a ``dtype`` KV cache
-    answering ``prompts``; fails unless every request finishes with all its
-    tokens. Returns (requests, seconds, loop, peak device bytes)."""
-    max_seq = max(SERVE_PROMPT_LENS) + SERVE_NEW_TOKENS
+def _serve(torch, ServeLoop, Request, model, params, prompts, dtype,
+           slots=SERVE_SLOTS, new=SERVE_NEW_TOKENS, max_seq=None, record=None):
+    """One ServeLoop of ``slots`` slots with a ``dtype`` cache of
+    ``max_seq`` rows (default: the longest prompt plus ``new``) answering
+    ``prompts`` with ``new`` tokens each; fails unless every request
+    finishes with all its tokens. With a dict ``record``, each step's logits
+    row of each active request is appended to ``record[rid]`` (on the
+    card, no synchronize). Returns (requests, seconds, loop, peak device
+    bytes)."""
+    max_seq = max_seq or max(len(p) for p in prompts) + new
     torch.cuda.reset_peak_memory_stats()
-    loop = ServeLoop(model, params, n_slots=SERVE_SLOTS, max_seq=max_seq,
-                     dtype=dtype)
-    reqs = [Request(i, p, max_new=SERVE_NEW_TOKENS) for i, p in enumerate(prompts)]
+    loop = ServeLoop(model, params, n_slots=slots, max_seq=max_seq, dtype=dtype)
+    reqs = [Request(i, p, max_new=new) for i, p in enumerate(prompts)]
     for r in reqs:
         loop.submit(r)
+    if record is not None:
+        step = model.decode_step
+
+        def recording(*a, **kw):
+            logits, cache = step(*a, **kw)
+            for i, r in enumerate(loop.slot_req):
+                if r is not None:
+                    record.setdefault(r.rid, []).append(logits[i])
+            return logits, cache
+
+        model.decode_step = recording
     t0 = time.perf_counter()
-    loop.run()
-    torch.cuda.synchronize()
+    try:
+        loop.run()
+        torch.cuda.synchronize()
+    finally:
+        if record is not None:
+            del model.decode_step
     serve_s = time.perf_counter() - t0
-    if not all(r.done and len(r.output) == SERVE_NEW_TOKENS for r in reqs):
+    if not all(r.done and len(r.output) == new for r in reqs):
         raise AssertionError("a request did not finish with all its tokens")
     return reqs, serve_s, loop, torch.cuda.max_memory_allocated()
 
@@ -2605,6 +2657,210 @@ def phase_truth(torch, np, dev, ops, spec=None) -> dict:
     return {"launches": launches}
 
 
+def _visible_pairs(S: int, window) -> int:
+    """(query, key) pairs a causal head of S rows sees under ``window``."""
+    w = S if window is None else min(window, S)
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def phase_mamba(torch, np, dev, ops, ref, card) -> dict:
+    """Phase 21: falcon-mamba-7b and hymba-1.5b served at full width and
+    depth, then B4 at hymba's attention shapes. Returns B4's launches in
+    hymba's prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, mamba
+    from repro_torch.runtime import Request, ServeLoop
+
+    t_phase = time.perf_counter()
+    hymba_launches = None
+    for arch in ("falcon-mamba-7b", "hymba-1.5b"):
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        model = Model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(seed=0)
+        torch.cuda.synchronize()
+        n_params = sum(int(t.numel()) for t in _tree_leaves(params))
+        n_attn = sum(c for k, c in cfg.plan if k != "ssm")
+        log(f"[21] {arch}: {cfg.n_layers} layers {cfg.plan}, d_model "
+            f"{cfg.d_model}, d_inner {cfg.resolved_d_inner}, state "
+            f"{cfg.ssm_state}, dt_rank {cfg.resolved_dt_rank}, "
+            + (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of "
+               f"{cfg.resolved_head_dim}, window {cfg.swa_window}, d_ff "
+               f"{cfg.d_ff}, " if n_attn else "no attention, no MLP, ")
+            + f"vocab {cfg.vocab_size}, untied head; {n_params} parameters "
+            f"({cfg.param_dtype}) drawn on the card in "
+            f"{time.perf_counter() - t0:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        B, S = MAMBA_PREFILL[arch]
+        rng = np.random.default_rng(2)
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+        model.prefill(params, prompts[:1, :128])       # warm-up: cuBLAS, kernel
+        torch.cuda.synchronize()
+
+        # the main path: bf16 prefill, attention through the kernel
+        torch.cuda.reset_peak_memory_stats()
+        ops.flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        logits = model.prefill(params, prompts)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = ops.flash_attention_fwd.launches
+        if launches != n_attn:
+            raise AssertionError(f"{arch} prefill launched the flash kernel "
+                                 f"{launches} times, not once per attention "
+                                 f"layer ({n_attn})")
+        if tuple(logits.shape) != (B, cfg.vocab_size) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: prefill logits are not a finite "
+                                 f"(B, vocab) matrix")
+        log(f"[21] {arch} prefill {B}x{S} bf16: {prefill_s:.4f} s, "
+            f"{B * S / prefill_s:.1f} tok/s, {launches} flash kernel launches, "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if arch == "hymba-1.5b":
+            hymba_launches = launches
+
+        # the same prefill in float32 with the plain reference attention
+        t0 = time.perf_counter()
+        ref32 = Model(cfg.replace(dtype="float32", attention_impl="reference"))
+        logits_ref = ref32.prefill(params, prompts)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        sigma = float(logits_ref.std())
+        d = (logits - logits_ref).abs()
+        d_max, d_mean = float(d.max()), float(d.mean())
+        am_k, am_r = _argmax_rows(torch, logits), _argmax_rows(torch, logits_ref)
+        log(f"[21] {arch} bf16 vs float32 reference ({ref_s:.3f} s): logits "
+            f"std σ {sigma:.4f}; max |Δlogits| {d_max:.4f} = {d_max / sigma:.4f}σ "
+            f"(≤ {MAMBA_BF16_REL_MAX}σ), mean {d_mean:.5f} = "
+            f"{d_mean / sigma:.5f}σ (≤ {MAMBA_BF16_REL_MEAN}σ); argmax equal "
+            f"on {sum(a == b for a, b in zip(am_k, am_r))}/{B} rows")
+        if d_max > MAMBA_BF16_REL_MAX * sigma or d_mean > MAMBA_BF16_REL_MEAN * sigma:
+            raise AssertionError(f"{arch}: bf16 prefill logits outside the "
+                                 f"stated tolerance")
+        del logits, logits_ref, ref32, d
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the selective scan's share of the prefill: the same prefill again,
+        # the scan timed on the host around each call (it is launch-bound,
+        # so the synchronizes around it barely move it)
+        scan_s = []
+        plain_scan = mamba.selective_scan
+
+        def timed_scan(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            y = plain_scan(*a, **kw)
+            torch.cuda.synchronize()
+            scan_s.append(time.perf_counter() - t)
+            return y
+
+        mamba.selective_scan = timed_scan
+        try:
+            t0 = time.perf_counter()
+            model.prefill(params, prompts)
+            torch.cuda.synchronize()
+            again_s = time.perf_counter() - t0
+        finally:
+            mamba.selective_scan = plain_scan
+        log(f"[21] {arch} prefill again with the scan timed: {again_s:.4f} s, "
+            f"of which the selective scan {sum(scan_s):.4f} s "
+            f"({sum(scan_s) / again_s:.1%}) over {len(scan_s)} layers "
+            f"({S} steps in chunks of {cfg.ssm_chunk}, one addcmul a step: "
+            f"{sum(scan_s) / len(scan_s) / S * 1e6:.2f} µs a step)")
+
+        # 8 requests through a 4-slot loop in bf16; the last 4 land in
+        # reused slots and must serve as they do in a fresh 4-slot loop
+        prompts_s = [rng.integers(0, cfg.vocab_size, L)
+                     for L in MAMBA_SERVE_PROMPT_LENS]
+        max_seq = max(MAMBA_SERVE_PROMPT_LENS) + MAMBA_SERVE_NEW
+        seen = {}
+        reqs, serve_s, loop, peak = _serve(
+            torch, ServeLoop, Request, model, params, prompts_s,
+            torch.bfloat16, new=MAMBA_SERVE_NEW, record=seen)
+        generated = sum(len(r.output) for r in reqs)
+        log(f"[21] {arch} ServeLoop bf16 {SERVE_SLOTS} slots, {len(reqs)} "
+            f"requests (prompts {list(MAMBA_SERVE_PROMPT_LENS)}, "
+            f"{MAMBA_SERVE_NEW} new each): {serve_s:.3f} s, {loop.steps} "
+            f"steps ({serve_s / loop.steps * 1e3:.2f} ms a step), "
+            f"{loop.tokens_stepped} tokens stepped "
+            f"({loop.tokens_stepped / serve_s:.1f} tok/s), {generated} "
+            f"generated; peak device memory {peak / 2**30:.3f} GiB")
+        t0 = time.perf_counter()
+        reused = reqs[SERVE_SLOTS:]
+        seen_fresh = {}
+        fresh, _, _, _ = _serve(torch, ServeLoop, Request, model, params,
+                                [r.prompt for r in reused], torch.bfloat16,
+                                new=MAMBA_SERVE_NEW, max_seq=max_seq,
+                                record=seen_fresh)
+        worst = 0.0
+        for r, f in zip(reused, fresh):
+            got, want = torch.stack(seen[r.rid]), torch.stack(seen_fresh[f.rid])
+            if r.output != f.output or got.shape != want.shape:
+                raise AssertionError(
+                    f"{arch}: request {r.rid} in a reused slot served "
+                    f"{r.output}, in a fresh slot {f.output}")
+            worst = max(worst, float((got - want).abs().max()))
+        log(f"[21] {arch} reused slots vs a fresh {SERVE_SLOTS}-slot loop "
+            f"({time.perf_counter() - t0:.3f} s): tokens equal for "
+            f"{len(reused)}/{len(reused)} requests; logits max |Δ| {worst}")
+        if worst != 0.0:
+            raise AssertionError(f"{arch}: a reused slot's logits differ from "
+                                 f"a fresh slot's by {worst}")
+        del seen, seen_fresh
+        log(f"[21] {arch}: {time.perf_counter() - t_arch:.1f} s in all")
+        del model, params, loop, reqs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # B4 at hymba's attention shapes in its prefill: the SWA and full layers
+    import torch.nn.functional as F
+    cfg = get_config("hymba-1.5b")
+    B, S = MAMBA_PREFILL[cfg.name]
+    Hq, Hkv, D, window = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                          cfg.swa_window)
+    q, k, v = _flash_inputs(torch, dev, 21, B, Hq, Hkv, S, S, D, torch.bfloat16)
+    per_layer = {}
+    for name, w in (("SWA", window), ("full", None)):
+        d_o, d_lse = _compare_flash(torch, ops, ref, q, k, v, True, w)
+        ms = _time_ms(torch, lambda: ops.flash_attention_fwd(
+            q, k, v, causal=True, window=w), 20)
+        plain_ms = _time_ms(torch, lambda: ref.flash_attention_fwd_torch(
+            q, k, v, causal=True, window=w), 3)
+        mask = ref._visible(S, S, True, w, dev)
+        sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), 20)
+        pairs = _visible_pairs(S, w)
+        ops_n = 4 * D * pairs * B * Hq
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * S
+        t_ops, t_bytes = ops_n / BF16_OPS * 1e3, nbytes / HBM_BPS * 1e3
+        bound_ms = max(t_ops, t_bytes)
+        per_layer[name] = (ms, plain_ms, sdpa_ms, bound_ms)
+        log(f"[21] B4 at hymba's {name} layer (B={B} Hq={Hq} Hkv={Hkv} S={S} "
+            f"D={D} window {w}, bf16, {card}): kernel vs plain max |Δo| "
+            f"{d_o:.3e}, max |Δlse| {d_lse:.3e}; kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention(attn_mask=the "
+            f"same boolean mask, enable_gqa=True) {sdpa_ms:.4f} ms; bound "
+            f"{bound_ms:.4f} ms by "
+            f"{'operations' if bound_ms == t_ops else 'bytes'} ({pairs} "
+            f"visible pairs a head)")
+        for x in (ms, plain_ms, sdpa_ms, bound_ms):
+            if not math.isfinite(x) or x <= 0:
+                raise AssertionError("a timing is not a positive number")
+    n_full = sum(c for kd, c in cfg.plan if kd == "hybrid_full")
+    n_swa = sum(c for kd, c in cfg.plan if kd == "hybrid_swa")
+    tot = [n_swa * a + n_full * b for a, b in zip(per_layer["SWA"],
+                                                   per_layer["full"])]
+    log(f"[21] B4 a hymba prefill ({n_swa} SWA + {n_full} full layers): "
+        f"kernel {tot[0]:.3f} ms, plain {tot[1]:.3f} ms, SDPA {tot[2]:.3f} "
+        f"ms, bound {tot[3]:.3f} ms")
+    log(f"[21] phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": hymba_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2917,6 +3173,14 @@ def main() -> int:
 
     # -- 12. flash backward timing at the training step's shapes -------------
     bt = phase_flash_bwd_timing(torch, dev, ops, ref, card, training)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 21. falcon-mamba-7b and hymba-1.5b served at full width ------------
+    mamba_out = phase_mamba(torch, np, dev, ops, ref, card)
+    # B4's launches: Llama's prefill and hymba's, added
+    b4_paths = {"llama3.2-1b prefill (phase 8)": llama["launches"],
+                "hymba-1.5b prefill (phase 21)": mamba_out["launches"]}
     bwd = []
     for name, key, line in (("flash_attention_bwd_dq", "dq", 151),
                             ("flash_attention_bwd_dkv", "dkv", 180)):
@@ -2959,7 +3223,8 @@ def main() -> int:
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:58",
-        "launches": llama["launches"],
+        "launches_by_path": b4_paths,
+        "launches": sum(b4_paths.values()),
         "max_abs_err": max(flash_worst, fl["max_abs_err"]),
         "ms": fl["ms"],
         "plain_ms": fl["plain_ms"],

@@ -1,17 +1,21 @@
-"""Config schema: model architectures and the layer plan.
+"""Config schema: model architectures, input shapes, and the layer plan.
 
 The port's copy of the JAX package's ``configs/base.py``, cut to the fields
-the ``dense`` path reads in serving and training: the same names, the same defaults and the same
-``reduced()`` for them, so a test can build one configuration in both
-packages and compare like with like. The fields of the other block kinds
-(MoE, SSM, cross, hybrid windows), the MLP variants and the benchmark
-shapes come with the slices whose code reads them (ROADMAP A14).
+the ported block kinds read in serving and training: the same names, the
+same defaults and the same ``reduced()`` for them, so a test can build one
+configuration in both packages and compare like with like. The fields of
+the MoE and cross kinds and the MLP variants come with the slices whose
+code reads them (ROADMAP A.7).
 
 A model is a ``ModelConfig`` plus a *layer plan*: a list of
 (block_kind, count) segments. Layers inside a segment are homogeneous and
-their parameters are stacked over a leading layer dimension. The port runs
-the ``dense`` kind (self-attention + SwiGLU MLP); a plan naming another
-kind is refused by ``Model``.
+their parameters are stacked over a leading layer dimension. Block kinds:
+
+  dense        — self-attn + MLP
+  ssm          — Mamba1 mixer, no MLP
+  hybrid_swa   — parallel attn (sliding window) + Mamba heads, then MLP
+  hybrid_full  — parallel attn (full) + Mamba heads, then MLP
+  moe, cross   — not ported yet; ``Model`` refuses a plan naming them
 
 ``attention_impl`` selects the attention of the prefill/forward path:
 ``"kernel"`` (the default) goes through ``kernels.ops.flash_attention_fwd``,
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 ATTENTION_IMPLS = ("kernel", "reference")
 
@@ -32,6 +36,7 @@ ATTENTION_IMPLS = ("kernel", "reference")
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
+    family: str                      # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int
@@ -39,31 +44,54 @@ class ModelConfig:
     d_ff: int
     vocab_size: int
     head_dim: int = 0                # 0 → d_model // n_heads
-    # layer plan: tuple of (block_kind, count); () → (("dense", n_layers),)
+    # layer plan: tuple of (block_kind, count); () → [(family's kind, n_layers)]
     layer_plan: Tuple[Tuple[str, int], ...] = ()
+    tie_embeddings: bool = False
     rope_theta: float = 10000.0
+    # SSM (mamba1)
+    ssm_state: int = 0
+    d_inner: int = 0                 # 0 → 2 * d_model
+    conv_kernel: int = 4
+    dt_rank: int = 0                 # 0 → ceil(d_model / 16)
+    ssm_chunk: int = 64              # chunked-scan granularity
+    # attention windows (hybrid)
+    swa_window: Optional[int] = None
     # numerics / impl
     dtype: str = "bfloat16"          # compute dtype
     param_dtype: str = "float32"
     attention_impl: str = "kernel"   # kernel | reference
     # training
     remat: bool = True
-    optimizer: str = "adamw"         # adamw (adafactor waits, ROADMAP A14)
+    optimizer: str = "adamw"         # adamw (adafactor waits, ROADMAP A.7)
+    # long-context capability (sub-quadratic decode)
+    supports_long_context: bool = False
 
     @property
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
     @property
+    def resolved_d_inner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
+    @property
     def plan(self) -> Tuple[Tuple[str, int], ...]:
-        return self.layer_plan or (("dense", self.n_layers),)
+        if self.layer_plan:
+            return self.layer_plan
+        default = {"dense": "dense", "moe": "moe", "ssm": "ssm",
+                   "hybrid": "hybrid_swa", "audio": "cross", "vlm": "dense"}
+        return ((default[self.family], self.n_layers),)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
     def reduced(self, n_layers: int = 2, d_model: int = 64, d_ff: int = 128,
                 vocab: int = 512) -> "ModelConfig":
-        """A smoke-test-sized config of the same plan shape."""
+        """A smoke-test-sized config of the same family/plan shape."""
         heads = max(2, min(4, self.n_heads))
         kv = max(1, min(heads, self.n_kv_heads))
         while heads % kv:
@@ -80,5 +108,38 @@ class ModelConfig:
             n_layers=len(plan) or n_layers,
             d_model=d_model, d_ff=d_ff, vocab_size=vocab,
             n_heads=heads, n_kv_heads=kv, head_dim=0, layer_plan=plan,
+            d_inner=2 * d_model if self.family in ("ssm", "hybrid") else 0,
+            ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
+            dt_rank=0,
+            swa_window=min(self.swa_window, 32) if self.swa_window else None,
             dtype="float32", param_dtype="float32",
         )
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """long_500k needs sub-quadratic attention (DESIGN.md shape-skip notes)."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("pure full-attention arch: 500k dense KV decode is "
+                       "quadratic and unshardable at batch=1 — skipped per "
+                       "DESIGN.md")
+    return True, ""

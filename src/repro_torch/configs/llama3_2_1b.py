@@ -2,8 +2,8 @@
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
-    name="llama3.2-1b",
+    name="llama3.2-1b", family="dense",
     n_layers=16, d_model=2048, n_heads=32, n_kv_heads=8,
     d_ff=8192, vocab_size=128256,
-    rope_theta=500000.0,
+    tie_embeddings=True, rope_theta=500000.0,
 )

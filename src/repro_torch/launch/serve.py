@@ -7,10 +7,14 @@
 
       runs on the card (``--device cuda``, the default) with random weights
       from seed 0: one ``Model.prefill`` of the prompts (the flash-attention
-      kernel, one launch per layer), then ``greedy_decode``, which steps the
-      prompts and the new tokens through the KV-cached decode path.
+      kernel, one launch per attention layer), then ``greedy_decode``, which
+      steps the prompts and the new tokens through the cached decode path.
+      ``--arch`` is one of ``llama3.2-1b``, ``falcon-mamba-7b`` (Mamba
+      layers only) and ``hymba-1.5b`` (attention and Mamba heads in every
+      layer, a sliding window on 29 of 32); for the last two the prompt
+      length is a multiple of the scan chunk (64) or shorter.
       ``--reduced`` serves a smoke-test size (2 layers, d_model 256,
-      head_dim 64); ``--device cpu`` runs the plain PyTorch path.
+      attention head_dim 64); ``--device cpu`` runs the plain PyTorch path.
 
   --task detect: the batched detection service (``core/serving.py``). A
       corpus is held in memory; concurrent requests — each a few query

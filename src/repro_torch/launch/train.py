@@ -12,7 +12,8 @@ hold ``--seq`` + 1 tokens, so every row trains on ``--seq`` tokens.
 ``--fusion-weighted`` first runs copy detection and truth finding over the
 corpus's content-hashed spans (``data/fusion_weights.py``, on the same
 device) and samples documents by the source and duplication weights it
-derives.
+derives. The SSM block kinds (falcon-mamba-7b, hymba-1.5b) are served
+only: training them raises (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -68,11 +69,13 @@ def main(argv=None):
         data = accum()
 
     prefetch = Prefetcher(data)
-    state, history = train(
-        model, prefetch, steps=args.steps, peak_lr=args.lr,
-        grad_accum=args.grad_accum, checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every)
-    prefetch.close()
+    try:
+        state, history = train(
+            model, prefetch, steps=args.steps, peak_lr=args.lr,
+            grad_accum=args.grad_accum, checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every)
+    finally:
+        prefetch.close()
     print(f"[train] finished at step {int(state['step'])}, "
           f"final loss {history[-1]['loss']:.4f}")
     return state, history

@@ -7,7 +7,7 @@ Layouts (the JAX package's):
 The prefill/forward attention goes through ``kernels.ops.flash_attention``
 (``cfg.attention_impl``: the hand-written kernel, or the plain reference).
 One-token decode attention is plain torch, as the JAX package leaves it to
-jnp. ``cross_attention`` waits for the ``cross`` block kind (ROADMAP A14).
+jnp. ``cross_attention`` waits for the ``cross`` block kind (ROADMAP A.7).
 """
 from __future__ import annotations
 

@@ -88,15 +88,24 @@ def tree_unflatten(like, leaves):
 
 def stacked(init_fn, gen: torch.Generator, n: int, *args, **kw):
     """Initialize a weight tree stacked over a leading layer dimension: one
-    draw of ``init_fn`` per layer, in layer order."""
-    layers = [init_fn(gen, *args, **kw) for _ in range(n)]
+    draw of ``init_fn`` per layer, in layer order, each written into the
+    stacked leaves as soon as it is drawn (so the peak is the stack and one
+    layer, not the stack twice)."""
+    out = None
+    for i in range(n):
+        layer = init_fn(gen, *args, **kw)
+        if out is None:
+            out = tree_map(lambda t: t.new_empty((n, *t.shape)), layer)
+        _put(out, layer, i)
+    return out
 
-    def zip_trees(trees):
-        if isinstance(trees[0], dict):
-            return {k: zip_trees([t[k] for t in trees]) for k in trees[0]}
-        return torch.stack(trees)
 
-    return zip_trees(layers)
+def _put(dst, src, i: int) -> None:
+    if isinstance(src, dict):
+        for k in src:
+            _put(dst[k], src[k], i)
+    else:
+        dst[i] = src
 
 
 def cast_tree(tree, dtype):

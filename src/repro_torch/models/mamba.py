@@ -1,0 +1,165 @@
+"""Mamba-1 selective-state-space mixer (falcon-mamba, hymba's SSM heads).
+
+The port of the JAX package's ``models/mamba.py``, with its dtype policy:
+the projections and the causal depthwise conv run in the compute dtype,
+dt, B, C and the scan in float32. The prefill/forward scan walks the
+sequence in chunks of ``cfg.ssm_chunk`` steps and carries only the
+(B, d_inner, state) float32 state from one chunk to the next, as JAX's
+chunked ``lax.scan`` does: a chunk's decay factors exp(dt·A) and inputs
+dt·B·x are formed in one pass each, then one fused multiply-add a step
+(``torch.addcmul``) advances the state, and one product with C reads the
+chunk's outputs. Live state is (chunk, B, d_inner, state), never
+(B, S, d_inner, state). The JAX package leaves the scan outside any
+Pallas kernel, and so does the port: it is plain torch (ROADMAP,
+performance item "the selective scan's step loop").
+
+Decoding carries (h, conv window) explicitly, O(1) per token; the port
+writes them into the cache's tensors in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.common import dense_init
+
+
+def init_mamba(gen: torch.Generator, cfg: ModelConfig):
+    D = cfg.d_model
+    di = cfg.resolved_d_inner
+    n = cfg.ssm_state
+    dtr = cfg.resolved_dt_rank
+    K = cfg.conv_kernel
+    dev = gen.device
+    # S4-style A init: -(1..n) per channel
+    a = torch.arange(1, n + 1, dtype=torch.float32, device=dev)[None, :]
+    return {
+        "in_proj": dense_init(gen, (D, 2 * di)),
+        "conv_w": dense_init(gen, (K, di), in_axis_size=K),
+        "conv_b": torch.zeros((di,), device=dev),
+        "x_proj": dense_init(gen, (di, dtr + 2 * n)),
+        "dt_proj": dense_init(gen, (dtr, di), in_axis_size=dtr),
+        "dt_bias": torch.full((di,), -4.6, device=dev),   # softplus ≈ 0.01
+        "A_log": torch.log(a.repeat(di, 1)),
+        "D": torch.ones((di,), device=dev),
+        "out_proj": dense_init(gen, (di, D)),
+    }
+
+
+def _ssm_inputs(p, x, cfg: ModelConfig):
+    """Shared pre-scan projection. x (B,S,D) → (xr, z), each (B,S,d_inner)."""
+    xz = x @ p["in_proj"].to(x.dtype)                   # (B,S,2di)
+    xr, z = torch.chunk(xz, 2, dim=-1)
+    return xr, z
+
+
+def _post_conv(p, xr, cfg: ModelConfig):
+    """(xr after SiLU, dt, B, C): dt/B/C in float32."""
+    n, dtr = cfg.ssm_state, cfg.resolved_dt_rank
+    dt_ = xr.dtype
+    xr = F.silu(xr)
+    proj = xr @ p["x_proj"].to(dt_)                     # (..., dtr+2n)
+    dt_r = proj[..., :dtr]
+    Bc = proj[..., dtr: dtr + n].to(torch.float32)
+    Cc = proj[..., dtr + n:].to(torch.float32)
+    pre = ((dt_r @ p["dt_proj"].to(dt_)).to(torch.float32)
+           + p["dt_bias"].to(torch.float32))
+    dt = torch.logaddexp(pre, torch.zeros((), device=pre.device))  # softplus
+    return xr, dt, Bc, Cc
+
+
+def _scan_chunk(A, h, xc, dtc, Bc, Cc):
+    """One chunk of the scan, time-major: xc/dtc (T,B,di), Bc/Cc (T,B,n)
+    float32, h (B,di,n) → (h, y (T,B,di)). A decode step is a chunk of
+    one step."""
+    da = torch.exp(dtc[..., None] * A)                  # (T,B,di,n)
+    u = dtc[..., None] * Bc[:, :, None, :] * xc[..., None]
+    hs = []
+    for t in range(xc.shape[0]):
+        h = torch.addcmul(u[t], da[t], h)               # da·h + dt·B·x
+        hs.append(h)
+    y = torch.einsum("tbdn,tbn->tbd", torch.stack(hs), Cc)
+    return h, y
+
+
+def selective_scan(A, x, dt, Bc, Cc, chunk: int, h0=None):
+    """The selective scan h_t = exp(dt_t·A)·h_{t−1} + dt_t·B_t·x_t,
+    y_t = h_t·C_t over chunks of ``chunk`` steps, all float32: A (di,n);
+    x, dt (B,S,di); Bc, Cc (B,S,n); h0 (B,di,n) or zeros → y (B,S,di)."""
+    B, S, di = x.shape
+    if S % chunk:
+        raise ValueError(f"sequence length {S} is not a multiple of the scan "
+                         f"chunk {chunk} (cfg.ssm_chunk)")
+    xs, dts = x.transpose(0, 1), dt.transpose(0, 1)     # time-major
+    Bs, Cs = Bc.transpose(0, 1), Cc.transpose(0, 1)
+    h = (torch.zeros((B, di, A.shape[1]), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    ys = []
+    for s in range(0, S, chunk):
+        h, y = _scan_chunk(A, h, xs[s: s + chunk], dts[s: s + chunk],
+                           Bs[s: s + chunk], Cs[s: s + chunk])
+        ys.append(y)
+    return torch.cat(ys).transpose(0, 1)
+
+
+def mamba_forward(p, x, cfg: ModelConfig, h0=None):
+    """Training/prefill forward. x (B,S,D) → (B,S,D)."""
+    S = x.shape[1]
+    xr, z = _ssm_inputs(p, x, cfg)
+
+    # causal depthwise conv along S
+    K = cfg.conv_kernel
+    xr_pad = F.pad(xr, (0, 0, K - 1, 0))
+    w = p["conv_w"].to(x.dtype)
+    conv = sum(xr_pad[:, i: i + S, :] * w[i] for i in range(K))
+    xr = conv + p["conv_b"].to(x.dtype)
+
+    xr, dt, Bc, Cc = _post_conv(p, xr, cfg)
+    A = -torch.exp(p["A_log"].to(torch.float32))        # (di,n)
+    y = selective_scan(A, xr.to(torch.float32), dt, Bc, Cc,
+                       min(cfg.ssm_chunk, S), h0=h0)
+
+    y = y.to(x.dtype) + xr * p["D"].to(x.dtype)
+    y = y * F.silu(z)
+    return y @ p["out_proj"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# decoding
+# ---------------------------------------------------------------------------
+
+def init_ssm_cache(cfg: ModelConfig, n_layers: int, batch: int,
+                   dtype=torch.float32, device=None):
+    di, n, K = cfg.resolved_d_inner, cfg.ssm_state, cfg.conv_kernel
+    return {
+        "h": torch.zeros((n_layers, batch, di, n), dtype=torch.float32,
+                         device=device),
+        "conv": torch.zeros((n_layers, batch, K - 1, di), dtype=dtype,
+                            device=device),
+    }
+
+
+def mamba_decode_step(p, x, cache_l, cfg: ModelConfig):
+    """x (B, 1, D) → (out (B,1,D), cache_l). ``cache_l`` holds this layer's
+    ``h`` and ``conv``; unlike the JAX package, which returns a new cache,
+    the port writes the new state into those tensors in place and returns
+    the same dict."""
+    xr, z = _ssm_inputs(p, x, cfg)                      # (B,1,di)
+    xr = xr[:, 0]
+    conv_c = cache_l["conv"]
+    window = torch.cat([conv_c, xr[:, None, :].to(conv_c.dtype)], dim=1)
+    conv = (torch.einsum("bkd,kd->bd", window.to(x.dtype),
+                         p["conv_w"].to(x.dtype))
+            + p["conv_b"].to(x.dtype))
+    xc, dt, Bc, Cc = _post_conv(p, conv[:, None, :], cfg)
+    xc, dt, Bc, Cc = xc[:, 0], dt[:, 0], Bc[:, 0], Cc[:, 0]
+    A = -torch.exp(p["A_log"].to(torch.float32))
+    h, y = _scan_chunk(A, cache_l["h"], xc.to(torch.float32)[None], dt[None],
+                       Bc[None], Cc[None])
+    y = y[0].to(x.dtype) + xc * p["D"].to(x.dtype)
+    y = y * F.silu(z[:, 0])
+    out = (y @ p["out_proj"].to(x.dtype))[:, None, :]
+    cache_l["h"].copy_(h)
+    conv_c.copy_(window[:, 1:])
+    return out, cache_l

@@ -2,7 +2,7 @@
 
 The products stay ``torch.matmul``, as the JAX package leaves them to XLA.
 The JAX package's GeGLU and GELU blocks come with the architectures that
-use them (ROADMAP A14).
+use them (ROADMAP A.7).
 """
 from __future__ import annotations
 

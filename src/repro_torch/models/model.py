@@ -3,11 +3,12 @@ carriers of the JAX package's parameters and train state into the port
 (``params_from_jax``, ``train_state_from_jax``).
 
 Parameters keep the JAX package's layout and tree — ``embed`` (V, D), also
-the tied output head, ``final_norm`` (D,), and ``segments``, one dict per
-layer-plan segment with every leaf stacked over a leading layer
-dimension — so a test can hand the same numbers to both packages. They are
-a plain tree passed to each call, as in JAX; the ``Model`` module holds the
-configuration and the device. ``loss`` is differentiable: autograd through
+the output head where ``cfg.tie_embeddings``, else ``lm_head`` (D, V),
+``final_norm`` (D,), and ``segments``, one dict per layer-plan segment
+with every leaf stacked over a leading layer dimension — so a test can
+hand the same numbers to both packages. They are a plain tree passed to
+each call, as in JAX; the ``Model`` module holds the configuration and
+the device. ``loss`` is differentiable: autograd through
 the flash-attention Function (``kernels.ops.FlashAttention``) on the
 kernel path, and with ``cfg.remat`` through per-layer checkpoints.
 """
@@ -57,6 +58,10 @@ class Model(nn.Module):
             "segments": [init_segment(gen, kind, count, cfg)
                          for kind, count in cfg.plan],
         }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = torch.randn(
+                (cfg.d_model, cfg.vocab_size), generator=gen,
+                device=self.device) * 0.02
         return cast_tree(params, DTYPES[cfg.param_dtype])
 
     def _tokens(self, tokens) -> torch.Tensor:
@@ -65,7 +70,8 @@ class Model(nn.Module):
         return tokens.to(device=self.device, dtype=torch.long)
 
     def _head(self, params):
-        return params["embed"].T                 # tied embeddings
+        return (params["embed"].T if self.cfg.tie_embeddings
+                else params["lm_head"])
 
     # --------------------------------------------------------------- forward
     def _stack(self, params, tokens):
@@ -88,7 +94,9 @@ class Model(nn.Module):
         """batch: {tokens (B, S), labels (B, S)} → mean token cross-entropy
         (a float32 scalar) over the full float32 logits, as the JAX
         package's ``Model.loss`` computes it: logsumexp minus the gold
-        logit, averaged."""
+        logit, averaged. Raises for the SSM kinds, which are served only."""
+        for kind, _ in self.cfg.plan:
+            check_kind(kind, training=True)
         logits = self.forward(params, batch["tokens"])
         labels = self._tokens(batch["labels"])
         lse = torch.logsumexp(logits, dim=-1)

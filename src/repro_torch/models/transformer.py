@@ -7,10 +7,13 @@ loop over the stacked layer dimension. With ``cfg.remat`` each layer runs
 under ``torch.utils.checkpoint`` (the counterpart of the JAX package's
 ``jax.checkpoint``) whenever autograd records a graph: only the layer's
 input is kept, and the backward recomputes the layer's forward. The port
-runs the ``dense`` block kind; every other kind raises
-``NotImplementedError`` until it is ported (ROADMAP A14).
+runs the ``dense``, ``ssm``, ``hybrid_swa`` and ``hybrid_full`` block
+kinds; ``moe`` and ``cross`` raise ``NotImplementedError`` until they are
+ported (ROADMAP A.7).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -23,17 +26,35 @@ from repro_torch.models.attention import (
     self_attention,
 )
 from repro_torch.models.common import rms_norm, stacked
+from repro_torch.models.mamba import (
+    init_mamba,
+    init_ssm_cache,
+    mamba_decode_step,
+    mamba_forward,
+)
 from repro_torch.models.mlp import init_mlp, mlp_forward
 
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "ssm", "hybrid_swa", "hybrid_full")
+ATTN_KINDS = {"dense", "hybrid_swa", "hybrid_full"}
+SSM_KINDS = {"ssm", "hybrid_swa", "hybrid_full"}
 
 
-def check_kind(kind: str) -> None:
-    """Raise for a block kind the port does not run yet."""
+def check_kind(kind: str, training: bool = False) -> None:
+    """Raise for a block kind the port does not run yet, or, with
+    ``training``, does not train yet: the SSM kinds are served only, their
+    backward is not yet held against the JAX package's."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP A14); the port "
+            f"block kind {kind!r} is not ported yet (ROADMAP A.7); the port "
             f"runs {PORTED_KINDS}")
+    if training and kind in SSM_KINDS:
+        raise NotImplementedError(
+            f"training block kind {kind!r} is not ported yet (ROADMAP A.7); "
+            f"the port serves it only")
+
+
+def _window(kind: str, cfg: ModelConfig) -> Optional[int]:
+    return cfg.swa_window if kind == "hybrid_swa" else None
 
 
 # ---------------------------------------------------------------------------
@@ -42,13 +63,22 @@ def check_kind(kind: str) -> None:
 
 def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig):
     check_kind(kind)
-    dev = gen.device
-    return {
-        "norm1": torch.zeros((cfg.d_model,), device=dev),
-        "attn": init_attention(gen, cfg),
-        "mlp": init_mlp(gen, cfg),
-        "norm2": torch.zeros((cfg.d_model,), device=dev),
-    }
+
+    def zeros():
+        return torch.zeros((cfg.d_model,), device=gen.device)
+
+    p = {"norm1": zeros()}
+    if kind in ATTN_KINDS:
+        p["attn"] = init_attention(gen, cfg)
+    if kind in SSM_KINDS:
+        p["mamba"] = init_mamba(gen, cfg)
+    if kind.startswith("hybrid"):
+        p["norm_a"] = zeros()
+        p["norm_m"] = zeros()
+    if kind != "ssm":                                    # dense/hybrid MLP
+        p["mlp"] = init_mlp(gen, cfg)
+        p["norm2"] = zeros()
+    return p
 
 
 def init_segment(gen: torch.Generator, kind: str, count: int, cfg: ModelConfig):
@@ -85,7 +115,14 @@ def _unstack(seg_params):
 def block_forward(kind: str, p, x, rope, cfg: ModelConfig):
     check_kind(kind)
     h = rms_norm(x, p["norm1"])
-    x = x + self_attention(p["attn"], h, rope, cfg)
+    if kind == "ssm":
+        return x + mamba_forward(p["mamba"], h, cfg)
+    if kind.startswith("hybrid"):
+        a = self_attention(p["attn"], h, rope, cfg, window=_window(kind, cfg))
+        m = mamba_forward(p["mamba"], h, cfg)
+        x = x + 0.5 * (rms_norm(a, p["norm_a"]) + rms_norm(m, p["norm_m"]))
+    else:
+        x = x + self_attention(p["attn"], h, rope, cfg)
     ff_in = rms_norm(x, p["norm2"])
     return x + mlp_forward(p["mlp"], ff_in)
 
@@ -108,8 +145,14 @@ def run_segment(kind: str, seg_params, x, rope, cfg: ModelConfig):
 def init_segment_cache(kind: str, count: int, cfg: ModelConfig, batch: int,
                        seq_len: int, dtype=torch.bfloat16, device=None):
     check_kind(kind)
-    return {"kv": init_kv_cache(cfg, count, batch, seq_len, dtype=dtype,
-                                device=device)}
+    c = {}
+    if kind in ATTN_KINDS:
+        c["kv"] = init_kv_cache(cfg, count, batch, seq_len,
+                                window=_window(kind, cfg), dtype=dtype,
+                                device=device)
+    if kind in SSM_KINDS:
+        c["ssm"] = init_ssm_cache(cfg, count, batch, dtype=dtype, device=device)
+    return c
 
 
 def block_decode(kind: str, p, x, cache_l, pos, cfg: ModelConfig):
@@ -117,10 +160,19 @@ def block_decode(kind: str, p, x, cache_l, pos, cfg: ModelConfig):
     updated in place."""
     check_kind(kind)
     h = rms_norm(x, p["norm1"])
-    a, kv = decode_self_attention(p["attn"], h, cache_l["kv"], pos, cfg)
-    x = x + a
+    if kind == "ssm":
+        o, _ = mamba_decode_step(p["mamba"], h, cache_l["ssm"], cfg)
+        return x + o, cache_l
+    if kind.startswith("hybrid"):
+        a, _ = decode_self_attention(p["attn"], h, cache_l["kv"], pos, cfg,
+                                     window=_window(kind, cfg))
+        m, _ = mamba_decode_step(p["mamba"], h, cache_l["ssm"], cfg)
+        x = x + 0.5 * (rms_norm(a, p["norm_a"]) + rms_norm(m, p["norm_m"]))
+    else:
+        a, _ = decode_self_attention(p["attn"], h, cache_l["kv"], pos, cfg)
+        x = x + a
     ff_in = rms_norm(x, p["norm2"])
-    return x + mlp_forward(p["mlp"], ff_in), {"kv": kv}
+    return x + mlp_forward(p["mlp"], ff_in), cache_l
 
 
 def run_segment_decode(kind: str, seg_params, x, cache, pos, cfg: ModelConfig):

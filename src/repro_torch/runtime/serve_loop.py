@@ -7,7 +7,11 @@ counter and every step runs all slots at their own positions (the decode
 path scatters each row's k/v at its own cache slot). The KV cache is
 allocated once for the pool; per-slot masking uses the cache's absolute
 ``pos_ids``, so interleaved slots cannot see each other, and a reused slot
-cannot see its earlier request's entries.
+cannot see its earlier request's entries. An SSM layer's state (``h`` and
+the conv window) has no positions to mask, so a slot's state is zeroed
+when a request attaches to it. (The JAX package's loop resets only the
+slot's counters, and a request in a reused slot starts from the state its
+predecessor left there: ROADMAP C17.)
 
 Prompts are teacher-forced through the decode step one token at a time, as
 in the JAX package's loop; the logits that follow a prompt's last token
@@ -68,6 +72,9 @@ class ServeLoop:
                 self.slot_req[i] = req
                 self.slot_pos[i] = 0
                 self.slot_cursor[i] = 0
+                for seg in self.cache:
+                    for state in seg.get("ssm", {}).values():
+                        state[:, i].zero_()
 
     def _next_tokens(self, last_logits) -> np.ndarray:
         toks = np.zeros(self.n_slots, np.int64)

@@ -245,11 +245,12 @@ def test_serve_loop_matches_jax(pair):
 
 def test_unported_kinds_and_options_raise():
     cfg = get_config("llama3.2-1b").reduced(**REDUCED)
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        Model(cfg.replace(layer_plan=(("moe", 2),)), device="cpu")
+    for kind in ("moe", "cross"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+            Model(cfg.replace(layer_plan=((kind, 2),)), device="cpu")
     with pytest.raises(ValueError, match="attention_impl"):
         Model(cfg.replace(attention_impl="pallas"), device="cpu")
-    with pytest.raises(KeyError, match="ROADMAP A14"):
+    with pytest.raises(KeyError, match="ROADMAP A.7"):
         get_config("gemma-2b")
 
 
