@@ -16,10 +16,11 @@ full-square and per-tile copyscore (``repro_torch.kernels.ops.copyscore_store``,
 plane with the engine's shard-owner fan-out, the LM serving path
 ``repro_torch.models.Model.prefill`` with
 ``repro_torch.runtime.ServeLoop`` (Llama-3.2-1B, falcon-mamba-7b and
-hymba-1.5b), and the LM training path ``repro_torch.runtime.train`` — and
+hymba-1.5b), and the LM training path ``repro_torch.runtime.train``
+(Llama-3.2-1B, hymba-1.5b and falcon-mamba-7b) — and
 checks them phase by phase; any failure exits non-zero. Phases 18 and
 13–17 run right after phase 6, while the full pass's store is still in
-memory; then phases 19 and 20, then phases 7–12, then phase 21.
+memory; then phases 19 and 20, then phases 7–12, then phases 21 and 22.
 Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -210,7 +211,29 @@ Phases:
      version, timed beside the plain version,
      ``F.scaled_dot_product_attention`` with the same boolean mask and the
      bound. B4's ``launches`` add hymba's prefill to Llama's
-     (``launches_by_path``).
+     (``launches_by_path``);
+ 22. training the SSM kinds: (a) ``mamba.SelectiveScan`` (the
+     chunk-checkpointed scan) against autograd of ``selective_scan_ref``
+     at falcon-mamba-7b's width (B 1, S 256, d_inner 8192, state 16, chunk
+     64, h0 given), float32: the output and every gradient within rtol/atol
+     1e-4, the Function's peak memory below the plain version's; (b) the
+     gradient of ``Model.loss`` at full hymba-1.5b width on 1 × 2048
+     tokens, depth cut to 4 layers of the plan's structure, through the
+     kernels in float32 against the reference attention (per leaf) and in
+     bf16 (cosine), phase 11's bars, launches (8, 4, 4); (c)
+     ``runtime.train`` (float32 parameters, bf16 compute, remat, AdamW) on
+     one fixed batch: hymba-1.5b at full width and depth, 4 steps of 4 ×
+     2048, launches (64, 32, 32) a step, and falcon-mamba-7b at full width
+     with 16 of its 64 layers (AdamW's state at 64 layers exceeds the
+     card), 4 steps of 4 × 1024, no launch; step-0 losses in stated bands,
+     the last lower by a stated margin, step time, tokens/s, peak memory
+     and the scan's share of one more step; the train CLI on both
+     (``--reduced``); (d) B5 and B6 at hymba's training shapes (B 4, Hq 25,
+     Hkv 5, S 2048, D 64, bf16, window 1024 and causal) against their plain
+     versions, timed beside the plain versions, the backward of
+     ``F.scaled_dot_product_attention`` with the same boolean mask and their
+     bounds. B4's ``launches_by_path`` add Llama's and hymba's training,
+     B5's and B6's hymba's training to Llama's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -359,6 +382,36 @@ MAMBA_BF16_REL_MEAN, MAMBA_BF16_REL_MAX = 0.08, 0.5
 # its limit
 MAMBA_SERVE_PROMPT_LENS = (12, 20, 8, 28, 16, 24, 10, 18)
 MAMBA_SERVE_NEW = 8
+
+# phase 22: training the SSM kinds. (a) the scan Function against autograd
+# of its plain loop at falcon-mamba-7b's width (B, S, d_inner, state,
+# chunk), float32: the same loop forward; the gradients sum in other orders
+# over up to S·B terms
+SSM_SCAN_CASE = dict(B=1, S=256, di=8192, n=16, chunk=64)
+SSM_SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
+# (b) gradient parity at full hymba-1.5b width on 1 × 2048 tokens (longer
+# than the window of 1024), depth cut to 4 layers of the plan's structure;
+# phase 11's bars (GRAD_F32_REL_MAX, GRAD_BF16_COS_MIN)
+SSM_GRAD_PLAN = (("hybrid_full", 1), ("hybrid_swa", 2), ("hybrid_full", 1))
+SSM_GRAD_LEN = 2048
+# (c) runtime.train at full width: (batch, length, steps, layers; None is
+# the config's depth). falcon-mamba-7b keeps 16 of its 64 layers: AdamW's
+# float32 parameters, gradients and moments of 7.27 B parameters take 116
+# GB, more than the card's 80 GB; 16 layers (2.2 B parameters) take ~35 GB
+SSM_TRAIN = {"hymba-1.5b": (4, 2048, 4, None),
+             "falcon-mamba-7b": (4, 1024, 4, 16)}
+SSM_TRAIN_WARMUP = 1                 # lr 0 at step 0, the peak at step 1
+# step-0 loss ≈ ln V + σ²/2 with logits of std σ = 0.02·√d_model from a
+# unit-RMS final state and a head of std 0.02: hymba ln 32001 + 0.32 ≈
+# 10.69, falcon ln 65024 + 0.82 ≈ 11.90; the bands are ±~0.5 about them,
+# as phase 11's about 12.17
+SSM_LOSS0_BAND = {"hymba-1.5b": (10.2, 11.2), "falcon-mamba-7b": (11.3, 12.5)}
+# the last step's loss below the first by at least this much after two
+# updates (Llama-3.2-1B's first update alone took 0.65 off, phase 11; the
+# head alone moves a gold logit by ~d_model·lr·0.8 ≈ 0.4 (hymba) an update)
+SSM_LOSS_DROP_MIN = 0.3
+# (d) B5 and B6 at hymba's training shapes: (B, Hq, Hkv, S, D), window
+SSM_BWD_SHAPE = (4, 25, 5, 2048, 64)
 
 
 def log(msg: str) -> None:
@@ -937,7 +990,8 @@ def phase_train(torch, ops) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     _profile_step(torch, cfg, batch)
-    return {"launches": {"dq": sum(c[1] for c in per_step),
+    return {"launches": {"fwd": sum(c[0] for c in per_step),
+                         "dq": sum(c[1] for c in per_step),
                          "dkv": sum(c[2] for c in per_step)},
             "step_s": step_s, "n_layers": n, "cfg": cfg}
 
@@ -2861,6 +2915,337 @@ def phase_mamba(torch, np, dev, ops, ref, card) -> dict:
     return {"launches": hymba_launches}
 
 
+def _scan_case(torch, dev):
+    """Phase 22a's inputs at falcon-mamba-7b's width: falcon's A (−(1..n)
+    a channel), x, dt = softplus(N(−2, 1)), B, C, h0 and the output's
+    cotangent, from a seeded generator on the card."""
+    import torch.nn.functional as F
+    c = SSM_SCAN_CASE
+    B, S, di, n = c["B"], c["S"], c["di"], c["n"]
+    gen = torch.Generator(device=dev).manual_seed(22)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+    return ([A, randn(B, S, di), F.softplus(randn(B, S, di) - 2.0),
+             randn(B, S, n), randn(B, S, n), 0.5 * randn(B, di, n)],
+            randn(B, S, di))
+
+
+def _scan_grads_on_card(torch, fn, ins, gy, chunk):
+    """``fn``'s output and gradients (A, x, dt, B, C, h0), the seconds of
+    its forward and backward and their peak device memory above the
+    inputs, from the second of two runs (the first warms up)."""
+    leaves = [a.clone().requires_grad_(True) for a in ins]
+
+    def run():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        y = fn(*leaves[:5], chunk, h0=leaves[5])
+        grads = torch.autograd.grad(y, leaves, gy)
+        torch.cuda.synchronize()
+        return (y.detach(), grads, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() - base)
+    run()
+    return run()
+
+
+class _ScanTimer:
+    """Times every ``SelectiveScan`` forward and backward on the host,
+    with a synchronize before and after each (the scan is launch-bound,
+    so they barely move it), while it is entered."""
+
+    def __init__(self, torch, mamba):
+        self.torch, self.cls = torch, mamba.SelectiveScan
+        self.fwd, self.bwd = [], []
+
+    def _wrap(self, fn, out):
+        torch = self.torch
+
+        def timed(ctx, *args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(ctx, *args)
+            torch.cuda.synchronize()
+            out.append(time.perf_counter() - t)
+            return r
+        return staticmethod(timed)
+
+    def __enter__(self):
+        self._orig = (self.cls.forward, self.cls.backward)
+        self.cls.forward = self._wrap(self._orig[0], self.fwd)
+        self.cls.backward = self._wrap(self._orig[1], self.bwd)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = staticmethod(self._orig[0])
+        self.cls.backward = staticmethod(self._orig[1])
+
+
+def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
+    """Phase 22: training the SSM kinds. (a) the scan Function against its
+    plain loop at falcon-mamba-7b's width; (b) gradient parity at full
+    hymba-1.5b width; (c) ``runtime.train`` for hymba-1.5b at full width
+    and depth and falcon-mamba-7b at full width with 16 layers, and the
+    train CLI on both; (d) B5 and B6 at hymba's training shapes. Returns
+    the kernels' launches in hymba's training run."""
+    import itertools
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import batches, synthetic_corpus
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.models import Model, mamba
+    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.runtime import StepMonitor, make_train_step, train
+
+    t_phase = time.perf_counter()
+    falcon_cut = SSM_TRAIN["falcon-mamba-7b"][3]
+    log(f"[22] training the SSM kinds; falcon-mamba-7b is cut to "
+        f"{falcon_cut} of its 64 layers: AdamW's float32 parameters, "
+        f"gradients and two moments of its 7.27 B parameters take 116 GB, "
+        f"more than the card's 80 GB (a factored optimizer waits, ROADMAP "
+        f"A.7); hymba-1.5b trains at full width and depth")
+
+    # (a) the scan Function against autograd of the plain loop
+    c = SSM_SCAN_CASE
+    ins, gy = _scan_case(torch, dev)
+    y, g, f_s, f_peak = _scan_grads_on_card(torch, mamba.selective_scan, ins,
+                                            gy, c["chunk"])
+    y_p, g_p, p_s, p_peak = _scan_grads_on_card(torch, mamba.selective_scan_ref,
+                                                ins, gy, c["chunk"])
+    torch.testing.assert_close(y, y_p, **SSM_SCAN_TOL)
+    errs = {"y": float((y - y_p).abs().max())}
+    for name, a, b in zip(("A", "x", "dt", "B", "C", "h0"), g, g_p):
+        torch.testing.assert_close(a, b, **SSM_SCAN_TOL,
+                                   msg=lambda m: f"scan gradient {name}: {m}")
+        errs[name] = float((a - b).abs().max())
+    log(f"[22a] SelectiveScan vs autograd of selective_scan_ref, float32, "
+        f"B={c['B']} S={c['S']} d_inner={c['di']} state={c['n']} chunk "
+        f"{c['chunk']}, h0 given: max |Δ| "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (≤ {SSM_SCAN_TOL}; y bit-equal: {torch.equal(y, y_p)})")
+    log(f"[22a] forward + backward: Function {f_s:.4f} s, peak "
+        f"{f_peak / 2**20:.1f} MiB above the inputs; plain {p_s:.4f} s, peak "
+        f"{p_peak / 2**20:.1f} MiB (one state a step kept: "
+        f"{c['S'] * c['B'] * c['di'] * c['n'] * 4 / 2**20:.1f} MiB)")
+    if not f_peak < p_peak:
+        raise AssertionError(f"the Function's backward peak {f_peak} B is not "
+                             f"below the plain version's {p_peak} B")
+    del ins, gy, y, g, y_p, g_p
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) gradient parity at full hymba width, depth cut to 4 layers
+    cfg = get_config("hymba-1.5b").replace(
+        n_layers=sum(n for _, n in SSM_GRAD_PLAN), layer_plan=SSM_GRAD_PLAN)
+    n = cfg.n_layers
+    corpus = synthetic_corpus(vocab_size=cfg.vocab_size,
+                              doc_len=SSM_GRAD_LEN + 1, seed=0)
+    small = next(batches(corpus, 1, SSM_GRAD_LEN, seed=1))
+    model = Model(cfg)
+    params = model.init(seed=0)
+    t0 = time.perf_counter()
+    l_ref, g_ref = _loss_grads(torch, Model(cfg.replace(
+        dtype="float32", attention_impl="reference")), params, small)
+    ref_s = time.perf_counter() - t0
+    launches = []
+    _reset_launches(ops)
+    t0 = time.perf_counter()
+    l_k32, g_k32 = _loss_grads(torch, Model(cfg.replace(dtype="float32")),
+                               params, small)
+    k32_s = time.perf_counter() - t0
+    launches.append(_count_launches(ops))
+    rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
+           for a, b in zip(g_k32, g_ref)]
+    del g_k32
+    _reset_launches(ops)
+    t0 = time.perf_counter()
+    l_bf, g_bf = _loss_grads(torch, model, params, small)
+    bf_s = time.perf_counter() - t0
+    launches.append(_count_launches(ops))
+    dot = sum(float((a.float() * b).sum()) for a, b in zip(g_bf, g_ref))
+    n_bf = math.sqrt(sum(float(a.float().square().sum()) for a in g_bf))
+    n_ref = math.sqrt(sum(float(b.square().sum()) for b in g_ref))
+    cos = dot / (n_bf * n_ref)
+    log(f"[22b] gradient of Model.loss at full hymba-1.5b width, {n} layers "
+        f"{cfg.plan}, 1x{SSM_GRAD_LEN} tokens (window {cfg.swa_window}): loss "
+        f"reference f32 {l_ref:.6f} ({ref_s:.3f} s), kernel f32 {l_k32:.6f} "
+        f"({k32_s:.3f} s), kernel bf16 {l_bf:.6f} ({bf_s:.3f} s); launches "
+        f"(fwd, dq, dkv) f32 {launches[0]}, bf16 {launches[1]}")
+    log(f"[22b] kernel f32 vs reference f32: per-leaf ‖Δg‖/‖g‖ max "
+        f"{max(rel):.3e} (≤ {GRAD_F32_REL_MAX}) over {len(rel)} leaves; bf16 "
+        f"kernel vs f32 reference: cosine {cos:.6f} (≥ {GRAD_BF16_COS_MIN}), "
+        f"gradient norms {n_bf:.4f} / {n_ref:.4f}")
+    if launches != [(2 * n, n, n)] * 2:
+        raise AssertionError(f"loss gradients launched (fwd, dq, dkv) "
+                             f"{launches}, not {(2 * n, n, n)} each")
+    if max(rel) > GRAD_F32_REL_MAX or not cos >= GRAD_BF16_COS_MIN:
+        raise AssertionError("hymba's gradients outside the stated bounds")
+    del params, g_ref, g_bf, model, corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) runtime.train at full width on one fixed batch, repeated
+    per_step = []
+
+    class LaunchMonitor(StepMonitor):
+        """Records the kernels' launches of each step, then resets them."""
+
+        def record(self, step, seconds):
+            per_step.append(_count_launches(ops))
+            _reset_launches(ops)
+            return super().record(step, seconds)
+
+    hymba_launches = None
+    for arch, (B, S, steps, layers) in SSM_TRAIN.items():
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        n_attn = sum(k for kd, k in cfg.plan if kd != "ssm")
+        n_ssm = sum(k for _, k in cfg.plan)
+        corpus = synthetic_corpus(vocab_size=cfg.vocab_size, doc_len=S + 1,
+                                  seed=0)
+        batch = next(batches(corpus, B, S, seed=2))
+        model = Model(cfg)
+        per_step.clear()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(ops)
+        t0 = time.perf_counter()
+        state, hist = train(model, itertools.repeat(batch), steps=steps,
+                            peak_lr=TRAIN_PEAK_LR, warmup=SSM_TRAIN_WARMUP,
+                            monitor=LaunchMonitor(), log_every=1, log_fn=log)
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        n_params = sum(int(t.numel()) for t in _tree_leaves(state["params"]))
+        want = (2 * n_attn, n_attn, n_attn)
+        if per_step != [want] * steps:
+            raise AssertionError(f"{arch}: launches (fwd, dq, dkv) per step "
+                                 f"{per_step}, not {want} each")
+        if arch == "hymba-1.5b":
+            hymba_launches = tuple(sum(c[i] for c in per_step) for i in range(3))
+        losses = [h["loss"] for h in hist]
+        secs = [h["seconds"] for h in hist]
+        step_s = sum(secs[1:]) / (len(secs) - 1)      # step 0 warms up
+        log(f"[22c] {arch}: {cfg.n_layers} layers {cfg.plan}, {n_params} "
+            f"parameters; train {steps} steps of {B}x{S} (float32 params, "
+            f"bf16 compute, remat, AdamW, peak lr {TRAIN_PEAK_LR}, warmup "
+            f"{SSM_TRAIN_WARMUP}) in {train_s:.3f} s incl. init; losses "
+            f"{[round(x, 4) for x in losses]}; step seconds "
+            f"{[round(x, 4) for x in secs]}")
+        log(f"[22c] {arch} step {step_s * 1e3:.2f} ms (mean of steps "
+            f"1..{steps - 1}), {B * S / step_s:.1f} tok/s, peak device memory "
+            f"{peak / 2**30:.3f} GiB; launches per step (fwd, dq, dkv) "
+            f"{per_step[0]}")
+        lo, hi = SSM_LOSS0_BAND[arch]
+        if not all(math.isfinite(x) for x in losses) or not lo <= losses[0] <= hi:
+            raise AssertionError(f"{arch}: step-0 loss {losses[0]} outside "
+                                 f"{(lo, hi)}, or a loss is not finite")
+        if not losses[-1] <= losses[0] - SSM_LOSS_DROP_MIN:
+            raise AssertionError(f"{arch}: loss fell from {losses[0]} to "
+                                 f"{losses[-1]}, less than {SSM_LOSS_DROP_MIN}")
+
+        # the scan's share of one more step, each Function call timed
+        step = make_train_step(model, adamw(), warmup_cosine(
+            TRAIN_PEAK_LR, SSM_TRAIN_WARMUP, steps))
+        with _ScanTimer(torch, mamba) as st:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            float(metrics["loss"])
+            wall = time.perf_counter() - t0
+        scan = sum(st.fwd) + sum(st.bwd)
+        log(f"[22c] {arch} one more step with the scan timed: {wall:.4f} s, of "
+            f"which the scan {scan:.4f} s ({scan / wall:.1%}): {len(st.fwd)} "
+            f"forwards ({n_ssm} layers, each again under remat) "
+            f"{sum(st.fwd):.4f} s, {len(st.bwd)} backwards {sum(st.bwd):.4f} s "
+            f"({S} steps in chunks of {cfg.ssm_chunk}: "
+            f"{sum(st.fwd) / len(st.fwd) / S * 1e6:.2f} µs a step forward, "
+            f"{sum(st.bwd) / len(st.bwd) / S * 1e6:.2f} µs backward)")
+        if (len(st.fwd), len(st.bwd)) != (2 * n_ssm, n_ssm):
+            raise AssertionError(f"{arch}: {len(st.fwd)} scan forwards and "
+                                 f"{len(st.bwd)} backwards in a step")
+        del state, hist, model, corpus, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the train CLI on both archs, on the card by default
+    for arch in SSM_TRAIN:
+        t0 = time.perf_counter()
+        _, hist = train_main(["--arch", arch, "--reduced", "--steps", "2",
+                              "--batch", "2", "--seq", "128"])
+        losses = [h["loss"] for h in hist]
+        log(f"[22c] train CLI --arch {arch} --reduced --steps 2 --batch 2 "
+            f"--seq 128 on the card: {time.perf_counter() - t0:.3f} s, losses "
+            f"{[round(x, 4) for x in losses]}")
+        if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train CLI --arch {arch}: losses {losses}")
+
+    # (d) B5 and B6 at hymba's training shapes, windowed and full
+    B, Hq, Hkv, S, D = SSM_BWD_SHAPE
+    cfg = get_config("hymba-1.5b")
+    per_layer = {}
+    for lname, w in (("SWA", cfg.swa_window), ("full", None)):
+        kw = dict(causal=True, window=w)
+        q, k, v, do, o, lse, delta = _bwd_inputs(
+            torch, ops, dev, 122, B, Hq, Hkv, S, S, D, torch.bfloat16, True, w)
+        _, e_dq, e_dkv = _compare_bwd(torch, ops, ref, q, k, v, do, lse, delta,
+                                      True, w)
+        args = (q, k, v, do, lse, delta)
+        dq_ms = _time_ms(torch, lambda: ops.flash_attention_bwd_dq(*args, **kw), 10)
+        dkv_ms = _time_ms(torch, lambda: ops.flash_attention_bwd_dkv(*args, **kw), 10)
+        dq_plain = _time_ms(torch, lambda: ref.flash_attention_bwd_dq_torch(
+            *args, **kw), 2)
+        dkv_plain = _time_ms(torch, lambda: ref.flash_attention_bwd_dkv_torch(
+            *args, **kw), 2)
+        mask = ref._visible(S, S, True, w, dev)
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                             enable_gqa=True)
+        backend = type(out.grad_fn).__name__
+        sdpa_ms = _time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves, do, retain_graph=True), 10)
+        pairs = B * Hq * _visible_pairs(S, w)
+        qb, kvb, stat = 2 * q.numel(), 2 * k.numel(), 4 * lse.numel()
+        bounds = {}
+        for kname, n_prod, nbytes in (("dq", 3, 3 * qb + 2 * kvb + 2 * stat),
+                                      ("dkv", 4, 2 * qb + 4 * kvb + 2 * stat)):
+            t_ops = n_prod * 2 * D * pairs / BF16_OPS * 1e3
+            t_bytes = nbytes / HBM_BPS * 1e3
+            bounds[kname] = (max(t_ops, t_bytes),
+                             "operations" if t_ops >= t_bytes else "bytes")
+        per_layer[lname] = (dq_ms, dkv_ms, dq_plain, dkv_plain, sdpa_ms,
+                            bounds["dq"][0], bounds["dkv"][0])
+        log(f"[22d] B5/B6 at hymba's {lname} layer (B={B} Hq={Hq} Hkv={Hkv} "
+            f"S={S} D={D} window {w}, bf16, {card}): kernels vs plain max "
+            f"|Δdq| {e_dq:.3e}, max |Δdk,dv| {e_dkv:.3e}; dq {dq_ms:.4f} ms "
+            f"(plain {dq_plain:.4f}, bound {bounds['dq'][0]:.4f} by "
+            f"{bounds['dq'][1]}), dk/dv {dkv_ms:.4f} ms (plain {dkv_plain:.4f}, "
+            f"bound {bounds['dkv'][0]:.4f} by {bounds['dkv'][1]}); backward "
+            f"of scaled_dot_product_attention(attn_mask=the same boolean "
+            f"mask, enable_gqa=True) {sdpa_ms:.4f} ms ({backend}; dq, dk and "
+            f"dv together); {_visible_pairs(S, w)} visible pairs a head")
+        for x in per_layer[lname]:
+            if not math.isfinite(x) or x <= 0:
+                raise AssertionError("a timing is not a positive number")
+        del q, k, v, do, o, lse, delta, args, leaves, out, mask
+        gc.collect()
+        torch.cuda.empty_cache()
+    n_full = sum(c for kd, c in cfg.plan if kd == "hybrid_full")
+    n_swa = sum(c for kd, c in cfg.plan if kd == "hybrid_swa")
+    tot = [n_swa * a + n_full * b for a, b in zip(per_layer["SWA"],
+                                                   per_layer["full"])]
+    log(f"[22d] B5/B6 a hymba training step ({n_swa} SWA + {n_full} full "
+        f"layers): dq {tot[0]:.3f} ms (plain {tot[2]:.3f}, bound {tot[5]:.3f}),"
+        f" dk/dv {tot[1]:.3f} ms (plain {tot[3]:.3f}, bound {tot[6]:.3f}); "
+        f"SDPA's backward {tot[4]:.3f} ms")
+    log(f"[22] phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": hymba_launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3178,18 +3563,29 @@ def main() -> int:
 
     # -- 21. falcon-mamba-7b and hymba-1.5b served at full width ------------
     mamba_out = phase_mamba(torch, np, dev, ops, ref, card)
-    # B4's launches: Llama's prefill and hymba's, added
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 22. training the SSM kinds ------------------------------------------
+    ssm_train = phase_ssm_train(torch, np, dev, ops, ref, card)
+    # B4's launches: Llama's prefill and training, hymba's prefill and
+    # training, added; B5's and B6's: Llama's and hymba's training
     b4_paths = {"llama3.2-1b prefill (phase 8)": llama["launches"],
-                "hymba-1.5b prefill (phase 21)": mamba_out["launches"]}
+                "llama3.2-1b training (phase 11)": training["launches"]["fwd"],
+                "hymba-1.5b prefill (phase 21)": mamba_out["launches"],
+                "hymba-1.5b training (phase 22)": ssm_train["launches"][0]}
     bwd = []
-    for name, key, line in (("flash_attention_bwd_dq", "dq", 151),
-                            ("flash_attention_bwd_dkv", "dkv", 180)):
+    for name, key, i, line in (("flash_attention_bwd_dq", "dq", 1, 151),
+                               ("flash_attention_bwd_dkv", "dkv", 2, 180)):
+        paths = {"llama3.2-1b training (phase 11)": training["launches"][key],
+                 "hymba-1.5b training (phase 22)": ssm_train["launches"][i]}
         bwd.append({
             "name": name,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-            "launches": training["launches"][key],
+            "launches_by_path": paths,
+            "launches": sum(paths.values()),
             **bt[key],
             "max_abs_err": max(bwd_worst[key], bt[key]["max_abs_err"]),
         })

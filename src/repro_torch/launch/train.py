@@ -12,8 +12,11 @@ hold ``--seq`` + 1 tokens, so every row trains on ``--seq`` tokens.
 ``--fusion-weighted`` first runs copy detection and truth finding over the
 corpus's content-hashed spans (``data/fusion_weights.py``, on the same
 device) and samples documents by the source and duplication weights it
-derives. The SSM block kinds (falcon-mamba-7b, hymba-1.5b) are served
-only: training them raises (ROADMAP A.7).
+derives. ``--arch falcon-mamba-7b`` and ``--arch hymba-1.5b`` train the
+SSM block kinds through the chunk-checkpointed scan
+(``models/mamba.py:SelectiveScan``); falcon-mamba-7b's 64 layers with
+AdamW need ~116 GB of parameters and optimizer state, more than one
+80 GB card holds, until a factored optimizer is ported (ROADMAP A.7).
 """
 from __future__ import annotations
 

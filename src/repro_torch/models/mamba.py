@@ -9,8 +9,12 @@ chunked ``lax.scan`` does: a chunk's decay factors exp(dt·A) and inputs
 dt·B·x are formed in one pass each, then one fused multiply-add a step
 (``torch.addcmul``) advances the state, and one product with C reads the
 chunk's outputs. Live state is (chunk, B, d_inner, state), never
-(B, S, d_inner, state). The JAX package leaves the scan outside any
-Pallas kernel, and so does the port: it is plain torch (ROADMAP,
+(B, S, d_inner, state). Training differentiates the scan through
+``SelectiveScan``, the counterpart of JAX's ``jax.checkpoint`` on each
+chunk: it keeps the state at each chunk's start and recomputes one chunk
+at a time in the backward. ``selective_scan_ref``, autograd through the
+same loop, is its plain version. The JAX package leaves the scan outside
+any Pallas kernel, and so does the port: it is plain torch (ROADMAP,
 performance item "the selective scan's step loop").
 
 Decoding carries (h, conv window) explicitly, O(1) per token; the port
@@ -83,24 +87,107 @@ def _scan_chunk(A, h, xc, dtc, Bc, Cc):
     return h, y
 
 
-def selective_scan(A, x, dt, Bc, Cc, chunk: int, h0=None):
-    """The selective scan h_t = exp(dt_t·A)·h_{t−1} + dt_t·B_t·x_t,
-    y_t = h_t·C_t over chunks of ``chunk`` steps, all float32: A (di,n);
-    x, dt (B,S,di); Bc, Cc (B,S,n); h0 (B,di,n) or zeros → y (B,S,di)."""
-    B, S, di = x.shape
+def _chunk_states(A, h, xc, dtc, Bc):
+    """``_scan_chunk``'s decays and states again, for the backward: → (da,
+    hs), each (T,B,di,n), the states written over dt·B·x in place."""
+    da = torch.exp(dtc[..., None] * A)
+    hs = dtc[..., None] * Bc[:, :, None, :] * xc[..., None]
+    for t in range(xc.shape[0]):
+        h = hs[t].addcmul_(da[t], h)
+    return da, hs
+
+
+def _check_chunk(S: int, chunk: int) -> None:
     if S % chunk:
         raise ValueError(f"sequence length {S} is not a multiple of the scan "
                          f"chunk {chunk} (cfg.ssm_chunk)")
+
+
+def _scan_chunks(A, x, dt, Bc, Cc, chunk: int, h0):
+    """The chunk loop: → (y (B,S,di), [the state before each chunk])."""
+    B, S, di = x.shape
     xs, dts = x.transpose(0, 1), dt.transpose(0, 1)     # time-major
     Bs, Cs = Bc.transpose(0, 1), Cc.transpose(0, 1)
     h = (torch.zeros((B, di, A.shape[1]), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
-    ys = []
+    starts, ys = [], []
     for s in range(0, S, chunk):
+        starts.append(h)
         h, y = _scan_chunk(A, h, xs[s: s + chunk], dts[s: s + chunk],
                            Bs[s: s + chunk], Cs[s: s + chunk])
         ys.append(y)
-    return torch.cat(ys).transpose(0, 1)
+    return torch.cat(ys).transpose(0, 1), starts
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The chunked scan with JAX's chunk checkpoint (``mamba_forward``'s
+    ``outer`` scan over ``jax.checkpoint``-ed chunks): the forward keeps
+    only the state at each chunk's start, n_chunks × (B, d_inner, n), never
+    a state a step; the backward walks the chunks from last to first,
+    recomputes one chunk's decays and states from its start state, runs the
+    reverse recurrence gh_t = C_t·gy_t + exp(dt_{t+1}·A)·gh_{t+1} (one
+    fused multiply-add a step) and forms the chunk's gradients in
+    whole-chunk passes. Live memory is one chunk's (T, B, d_inner, n)
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, A, x, dt, Bc, Cc, chunk, h0):
+        y, starts = _scan_chunks(A, x, dt, Bc, Cc, chunk, h0)
+        ctx.chunk = chunk
+        ctx.save_for_backward(A, x, dt, Bc, Cc, torch.stack(starts))
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        A, x, dt, Bc, Cc, starts = ctx.saved_tensors
+        T = ctx.chunk
+        xs, dts = x.transpose(0, 1), dt.transpose(0, 1)
+        Bs, Cs = Bc.transpose(0, 1), Cc.transpose(0, 1)
+        gys = gy.transpose(0, 1)
+        gx, gdt = torch.empty_like(xs), torch.empty_like(dts)
+        gB, gC = torch.empty_like(Bs), torch.empty_like(Cs)
+        gA = torch.zeros_like(A)
+        gh = None                       # the gradient of the chunk's last state
+        for c in range(starts.shape[0] - 1, -1, -1):
+            sl = slice(c * T, (c + 1) * T)
+            xc, dtc, Bcc, Ccc, gyc = xs[sl], dts[sl], Bs[sl], Cs[sl], gys[sl]
+            da, hs = _chunk_states(A, starts[c], xc, dtc, Bcc)
+            g = gyc[..., None] * Ccc[:, :, None, :]     # C_t·gy_t, (T,B,di,n)
+            if gh is not None:
+                g[-1] += gh
+            for t in range(T - 2, -1, -1):
+                g[t].addcmul_(da[t + 1], g[t + 1])
+            gh = da[0] * g[0]                          # → the state before
+            h_prev = torch.cat([starts[c][None], hs[:-1]])
+            gz = g * h_prev * da                       # d/d(dt·A)
+            gA += torch.einsum("tbdn,tbd->dn", gz, dtc)
+            gBx = torch.einsum("tbdn,tbn->tbd", g, Bcc)
+            gx[sl] = gBx * dtc
+            gdt[sl] = gBx * xc + torch.einsum("tbdn,dn->tbd", gz, A)
+            gB[sl] = torch.einsum("tbdn,tbd->tbn", g, dtc * xc)
+            gC[sl] = torch.einsum("tbd,tbdn->tbn", gyc, hs)
+        return (gA, gx.transpose(0, 1), gdt.transpose(0, 1),
+                gB.transpose(0, 1), gC.transpose(0, 1), None,
+                gh if ctx.needs_input_grad[6] else None)
+
+
+def selective_scan(A, x, dt, Bc, Cc, chunk: int, h0=None):
+    """The selective scan h_t = exp(dt_t·A)·h_{t−1} + dt_t·B_t·x_t,
+    y_t = h_t·C_t over chunks of ``chunk`` steps, all float32: A (di,n);
+    x, dt (B,S,di); Bc, Cc (B,S,n); h0 (B,di,n) or zeros → y (B,S,di).
+    Differentiable through ``SelectiveScan``, which keeps one state a
+    chunk."""
+    _check_chunk(x.shape[1], chunk)
+    return SelectiveScan.apply(A, x, dt, Bc, Cc, chunk, h0)
+
+
+def selective_scan_ref(A, x, dt, Bc, Cc, chunk: int, h0=None):
+    """The plain version of ``selective_scan``: the same chunk loop with
+    autograd through every step, so a backward keeps every step's state.
+    The yardstick of ``SelectiveScan``'s gradients in the tests and on the
+    card; nothing on the model's path calls it."""
+    _check_chunk(x.shape[1], chunk)
+    return _scan_chunks(A, x, dt, Bc, Cc, chunk, h0)[0]
 
 
 def mamba_forward(p, x, cfg: ModelConfig, h0=None):

@@ -10,7 +10,8 @@ hand the same numbers to both packages. They are a plain tree passed to
 each call, as in JAX; the ``Model`` module holds the configuration and
 the device. ``loss`` is differentiable: autograd through
 the flash-attention Function (``kernels.ops.FlashAttention``) on the
-kernel path, and with ``cfg.remat`` through per-layer checkpoints.
+kernel path and the chunk-checkpointed scan (``mamba.SelectiveScan``) of
+the SSM kinds, and with ``cfg.remat`` through per-layer checkpoints.
 """
 from __future__ import annotations
 
@@ -94,9 +95,7 @@ class Model(nn.Module):
         """batch: {tokens (B, S), labels (B, S)} → mean token cross-entropy
         (a float32 scalar) over the full float32 logits, as the JAX
         package's ``Model.loss`` computes it: logsumexp minus the gold
-        logit, averaged. Raises for the SSM kinds, which are served only."""
-        for kind, _ in self.cfg.plan:
-            check_kind(kind, training=True)
+        logit, averaged."""
         logits = self.forward(params, batch["tokens"])
         labels = self._tokens(batch["labels"])
         lse = torch.logsumexp(logits, dim=-1)

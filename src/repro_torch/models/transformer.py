@@ -7,9 +7,10 @@ loop over the stacked layer dimension. With ``cfg.remat`` each layer runs
 under ``torch.utils.checkpoint`` (the counterpart of the JAX package's
 ``jax.checkpoint``) whenever autograd records a graph: only the layer's
 input is kept, and the backward recomputes the layer's forward. The port
-runs the ``dense``, ``ssm``, ``hybrid_swa`` and ``hybrid_full`` block
-kinds; ``moe`` and ``cross`` raise ``NotImplementedError`` until they are
-ported (ROADMAP A.7).
+serves and trains the ``dense``, ``ssm``, ``hybrid_swa`` and
+``hybrid_full`` block kinds (the scan's backward is
+``mamba.SelectiveScan``); ``moe`` and ``cross`` raise
+``NotImplementedError`` until they are ported (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -39,18 +40,13 @@ ATTN_KINDS = {"dense", "hybrid_swa", "hybrid_full"}
 SSM_KINDS = {"ssm", "hybrid_swa", "hybrid_full"}
 
 
-def check_kind(kind: str, training: bool = False) -> None:
-    """Raise for a block kind the port does not run yet, or, with
-    ``training``, does not train yet: the SSM kinds are served only, their
-    backward is not yet held against the JAX package's."""
+def check_kind(kind: str) -> None:
+    """Raise for a block kind the port does not run yet; every ported kind
+    serves and trains."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported yet (ROADMAP A.7); the port "
             f"runs {PORTED_KINDS}")
-    if training and kind in SSM_KINDS:
-        raise NotImplementedError(
-            f"training block kind {kind!r} is not ported yet (ROADMAP A.7); "
-            f"the port serves it only")
 
 
 def _window(kind: str, cfg: ModelConfig) -> Optional[int]:

@@ -1,5 +1,9 @@
-"""Optimizers and schedules of the port: AdamW (``adafactor`` waits,
-ROADMAP A.7), the warmup-cosine schedule and global-norm clipping."""
+"""Optimizers and schedules of the port: AdamW, the warmup-cosine schedule
+and global-norm clipping. ``adafactor`` waits (ROADMAP A.7): it is what
+would train falcon-mamba-7b at full depth on one card, where AdamW's
+float32 parameters, gradients and two moments of 7.27 B parameters (16
+bytes a parameter, 116 GB) exceed 80 GB; its port needs an update that
+never makes a whole-leaf float32 temporary of a stacked leaf."""
 from repro_torch.optim.adamw import Optimizer, adamw
 from repro_torch.optim.schedule import clip_by_global_norm, warmup_cosine
 

@@ -26,7 +26,6 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.models.common import tree_leaves, tree_unflatten
-from repro_torch.models.transformer import check_kind
 from repro_torch.optim import OPTIMIZERS
 from repro_torch.optim.schedule import clip_by_global_norm, warmup_cosine
 
@@ -150,10 +149,7 @@ def train(
     """Run training with checkpoint/restart fault tolerance from parameters
     drawn by ``model.init(seed)``. Returns (final_state, history): one dict
     per completed step with its step, seconds (host clock, ending when the
-    step's metrics reach the host) and metrics. Refuses, before anything is
-    built, a model with a block kind the port serves but does not train."""
-    for kind, _ in model.cfg.plan:
-        check_kind(kind, training=True)
+    step's metrics reach the host) and metrics."""
     optimizer = OPTIMIZERS[optimizer_name or model.cfg.optimizer]()
     lr_fn = warmup_cosine(peak_lr, warmup, steps)
     step_fn = make_train_step(model, optimizer, lr_fn, grad_accum=grad_accum)

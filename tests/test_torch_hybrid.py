@@ -389,17 +389,16 @@ def test_reused_slot_starts_from_a_clean_state(arch):
     np.testing.assert_allclose(t_fresh, j_fresh, **TOL)
 
 
-def test_training_the_ssm_kinds_raises(pair):
-    """The SSM kinds are served only (ROADMAP A.7): ``Model.loss``, the
-    training loop and the training CLI refuse them, the CLI before it draws
-    any parameter."""
-    _, _, tcfg, tparams = pair
-    batch = {"tokens": _tokens(1, (1, 16)), "labels": _tokens(2, (1, 16))}
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        Model(tcfg, device="cpu").loss(tparams, batch)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        train_main(["--arch", tcfg.name, "--reduced", "--device", "cpu",
-                    "--steps", "1", "--batch", "1", "--seq", "16"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_cli_trains_the_ssm_kinds(arch):
+    """``launch.train --arch falcon-mamba-7b | hymba-1.5b --reduced`` trains
+    on the CPU: 2 steps of 2 × 128 tokens (two scan chunks), finite
+    losses."""
+    state, history = train_main(["--arch", arch, "--reduced", "--device", "cpu",
+                                 "--steps", "2", "--batch", "2", "--seq", "128"])
+    assert int(state["step"]) == 2 and len(history) == 2
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert "lm_head" in state["params"]
 
 
 def test_unported_kinds_still_raise():
