@@ -15,12 +15,13 @@ full-square and per-tile copyscore (``repro_torch.kernels.ops.copyscore_store``,
 ``copyscore_tile``), the index's commit/retract path, the row-range shard
 plane with the engine's shard-owner fan-out, the LM serving path
 ``repro_torch.models.Model.prefill`` with
-``repro_torch.runtime.ServeLoop`` (Llama-3.2-1B, falcon-mamba-7b and
-hymba-1.5b), and the LM training path ``repro_torch.runtime.train``
+``repro_torch.runtime.ServeLoop`` (Llama-3.2-1B, falcon-mamba-7b,
+hymba-1.5b, qwen2.5-3b, musicgen-large and phi3.5-moe), and the LM
+training path ``repro_torch.runtime.train``
 (Llama-3.2-1B, hymba-1.5b and falcon-mamba-7b) — and
 checks them phase by phase; any failure exits non-zero. Phases 18 and
 13–17 run right after phase 6, while the full pass's store is still in
-memory; then phases 19 and 20, then phases 7–12, then phases 21 and 22.
+memory; then phases 19 and 20, then phases 7–12, then phases 21–23.
 Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -57,15 +58,17 @@ Phases:
   7. the flash-attention kernel against its plain PyTorch version on the
      card: MHA, GQA (group 4), MQA, causal and not, windows 32 and 100,
      head_dim 64 and 128, float32 (CUDA cores) and bfloat16 (tensor cores,
-     P split into bf16 hi + lo), ragged Sq = Sk = 1000, Sq != Sk, and
-     causal Sq = 300, Sk = 428 (no multiple of the 128-row tiles); o and
-     lse within the stated tolerances, and o == 1 for an all-ones v;
+     P split into bf16 hi + lo), ragged Sq = Sk = 1000, Sq != Sk,
+     causal Sq = 300, Sk = 428 (no multiple of the 128-row tiles), and
+     musicgen-large's cross attention (1024 rows and one row against 64
+     keys, not causal); o and lse within the stated tolerances, and o == 1
+     for an all-ones v;
   8. the LM slice at full Llama-3.2-1B width (16 layers, d_model 2048,
      random weights from seed 0 on the card): ``Model.prefill`` of 8
      prompts × 2048 tokens in bfloat16 through the kernel (one launch per
      layer), held against the same prefill with the plain reference
      attention in float32 and with the kernel in float32; then a
-     ``ServeLoop`` of 4 slots answers 8 requests (prompts of 64–512
+     ``ServeLoop`` of 4 slots answers 8 requests (prompts of 32–256
      tokens, 32 new tokens each) in float32, each first token equal to
      the argmax of ``Model.prefill`` on its prompt, and again in the
      config's bfloat16 with a bfloat16 KV cache, each first token's
@@ -178,7 +181,7 @@ Phases:
      acknowledged commit's rows bit for bit and decides like a
      never-restarted twin; (d) a retraction of the 16 newest rows decides
      like a fresh service over the retracted corpus, and its rollback like
-     before it; (e) the wave's first 8 requests through a 4-owner packed
+     before it; (e) the wave's first 4 requests through a 4-owner packed
      ``ReplicaRouter`` fleet (one fan-out pass a request, ~4.5 s each)
      decide like (a), B1's launches an owner and the fleet's req/s;
  20. iterative truth finding at the Book-full preset with the same
@@ -233,7 +236,29 @@ Phases:
      versions, timed beside the plain versions, the backward of
      ``F.scaled_dot_product_attention`` with the same boolean mask and their
      bounds. B4's ``launches_by_path`` add Llama's and hymba's training,
-     B5's and B6's hymba's training to Llama's.
+     B5's and B6's hymba's training to Llama's;
+ 23. the ``moe`` and ``cross`` kinds and QKV bias served at full width,
+     random float32 weights from seed 0 on the card, one model at a time:
+     qwen2.5-3b (36 layers, QKV biases drawn N(0, 0.5)), musicgen-large (48
+     cross layers, GELU, a cond N(0, 1) of 64 × 1024) and
+     phi3.5-moe-42b-a6.6b (4 of its 32 layers: 16 experts of d_ff 6400,
+     top 2). ``Model.prefill`` of 2 × 2048, 2 × 1024 and 2 × 1024 tokens:
+     (a) in float32 through the kernel against the float32 reference
+     attention, (b) in bf16 against the float32 reference within bars in
+     σ of the reference logits (phi's max bar by whether a row's last
+     token routed alike), (c) B4's launches a prefill (36, 96, 4) and a
+     musicgen decode step (48); (d) a bf16 ``ServeLoop`` of 4 slots
+     answering 8 requests (musicgen's with a cond each; its last 4, in
+     reused slots, serve as in a fresh loop, tokens and logits bit for
+     bit); (f) the expert loop's share of a second phi prefill and the
+     share of (token, layer) top-2 sets that differ between the bf16 and
+     float32 runs; (e) B4 in bf16 at every attention shape of the three
+     prefills (each model's causal self attention, musicgen's cross
+     attention: 1024 and 1 rows against 64 keys) against its plain
+     version, timed beside the plain version,
+     ``F.scaled_dot_product_attention`` and the bound, and its share of
+     each prefill. B4's ``launches_by_path`` add the three prefills and
+     musicgen's decode.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -313,6 +338,10 @@ FLASH_CASES = [
     ("ragged Sq=Sk=1000", 1, 8, 2, 1000, 1000, 64, True, None),
     ("ragged Sq=100 Sk=37 non-causal", 1, 4, 2, 100, 37, 128, False, None),
     ("causal Sq=300 Sk=428", 1, 8, 2, 300, 428, 64, True, None),
+    # musicgen-large's cross attention (phase 23): prefill and decode rows
+    # against cond_len 64 keys, below one 128-key tile
+    ("cross Sq=1024 Sk=64 MHA non-causal", 4, 32, 32, 1024, 64, 64, False, None),
+    ("cross decode Sq=1 Sk=64", 4, 32, 32, 1, 64, 64, False, None),
 ]
 # Llama-3.2-1B prefill (phase 8) and the kernel's timing shapes (phase 9)
 PREFILL_BATCH, PREFILL_LEN = 8, 2048
@@ -325,7 +354,10 @@ BF16_LOGITS_MAX, BF16_LOGITS_MEAN = 0.3, 0.05
 # the kernel against the plain reference, both in float32: the attention's
 # summation order only
 F32_LOGITS_MAX = 1e-3
-SERVE_PROMPT_LENS = (64, 512, 128, 384, 96, 448, 256, 200)
+# the serve loop's prompts, halved from (64, 512, …, 200) when phase 23
+# joined: a loop step is host-bound (~25–35 ms), so the loops' ~650 steps
+# took ~38 s of a script near its 1200 s limit
+SERVE_PROMPT_LENS = (32, 256, 64, 192, 48, 224, 128, 100)
 SERVE_NEW_TOKENS, SERVE_SLOTS = 32, 4
 # bf16 serving against the bf16 prefill of the same prompt: both round to
 # bf16 at every op but in different orders (one token a step against the
@@ -412,6 +444,37 @@ SSM_LOSS0_BAND = {"hymba-1.5b": (10.2, 11.2), "falcon-mamba-7b": (11.3, 12.5)}
 SSM_LOSS_DROP_MIN = 0.3
 # (d) B5 and B6 at hymba's training shapes: (B, Hq, Hkv, S, D), window
 SSM_BWD_SHAPE = (4, 25, 5, 2048, 64)
+
+# phase 23: the moe and cross kinds and QKV bias served at full width:
+# (batch, prefill length, layers; None is the config's depth). phi3.5-moe
+# keeps 4 of its 32 layers: 41.9 B parameters are 168 GB in float32, 84 GB
+# in bf16, more than the card's 80 GB; 4 layers (5.6 B) keep every width
+# (16 experts of d_ff 6400). Batch 2 and phi's 4 layers (not 4 and 8) keep
+# the script under its 1200 s limit
+XSERVE = {"qwen2.5-3b": (2, 2048, None), "musicgen-large": (2, 1024, None),
+          "phi3.5-moe-42b-a6.6b": (2, 1024, 4)}
+# B4's launches a prefill (one a self-attention layer, one a cross one) and
+# a decode step (cross attention only: decode self attention is plain torch)
+XSERVE_PREFILL_LAUNCHES = {"qwen2.5-3b": 36, "musicgen-large": 96,
+                           "phi3.5-moe-42b-a6.6b": 4}
+XSERVE_DECODE_LAUNCHES = {"qwen2.5-3b": 0, "musicgen-large": 48,
+                          "phi3.5-moe-42b-a6.6b": 0}
+# qwen's QKV biases are drawn N(0, XSERVE_BIAS_STD) on the card (the init
+# draws them as zeros, which would leave the bias path untested)
+XSERVE_BIAS_STD = 0.5
+# (b) bf16 against the float32 reference: phase 21's bars in σ of the
+# reference logits. phi's router picks its top 2 of 16 experts from bf16
+# logits, so a near tie of the 2nd and 3rd expert flips between the runs
+# (~1–6 % of (token, layer) sets predicted); a flip at a row's last token
+# swaps one expert's term of that row's final state, moving its logits by
+# up to ~0.5σ. So phi's max bar holds 0.5σ on rows whose last token routed
+# alike in every layer and 2σ on the others (unrelated logits differ by
+# ~6σ at the max); the mean bar holds every row
+XSERVE_FLIP_ROW_MAX = 2.0
+# (d) the serve loop's prompts: 8 requests through 4 slots, 8 new tokens
+# each, so the last 4 land in reused slots (musicgen's re-attach writes the
+# new request's cond into its slot, C19)
+XSERVE_SERVE_PROMPT_LENS = MAMBA_SERVE_PROMPT_LENS
 
 
 def log(msg: str) -> None:
@@ -667,18 +730,21 @@ def phase_llama(torch, np, dev, ops) -> dict:
 
 
 def _serve(torch, ServeLoop, Request, model, params, prompts, dtype,
-           slots=SERVE_SLOTS, new=SERVE_NEW_TOKENS, max_seq=None, record=None):
+           slots=SERVE_SLOTS, new=SERVE_NEW_TOKENS, max_seq=None, record=None,
+           conds=None):
     """One ServeLoop of ``slots`` slots with a ``dtype`` cache of
     ``max_seq`` rows (default: the longest prompt plus ``new``) answering
-    ``prompts`` with ``new`` tokens each; fails unless every request
-    finishes with all its tokens. With a dict ``record``, each step's logits
-    row of each active request is appended to ``record[rid]`` (on the
-    card, no synchronize). Returns (requests, seconds, loop, peak device
-    bytes)."""
+    ``prompts`` (with ``conds``, one a request, where given) with ``new``
+    tokens each; fails unless every request finishes with all its tokens.
+    With a dict ``record``, each step's logits row of each active request
+    is appended to ``record[rid]`` (on the card, no synchronize). Returns
+    (requests, seconds, loop, peak device bytes)."""
     max_seq = max_seq or max(len(p) for p in prompts) + new
     torch.cuda.reset_peak_memory_stats()
     loop = ServeLoop(model, params, n_slots=slots, max_seq=max_seq, dtype=dtype)
-    reqs = [Request(i, p, max_new=new) for i, p in enumerate(prompts)]
+    conds = conds or [None] * len(prompts)
+    reqs = [Request(i, p, max_new=new, cond=c)
+            for i, (p, c) in enumerate(zip(prompts, conds))]
     for r in reqs:
         loop.submit(r)
     if record is not None:
@@ -2031,9 +2097,10 @@ SERVICE_PROBE = 8              # requests of the probe wave (c, d)
 SERVICE_RETRACT = 16           # (d) newest rows retracted
 SERVICE_FLEET_OWNERS = 4
 # (e) the wave's first requests through the fleet: each is a fan-out pass
-# of its own (~4.5 s on an H100), so 8, not the wave's 32, keep the phase
-# near its time budget
-SERVICE_FLEET_REQUESTS = 8
+# of its own (~4.5 s on an H100), so 4, not the wave's 32, keep the phase
+# near its time budget (8 until phase 23 joined a script that then ran
+# 1,195 s of its 1200 s limit)
+SERVICE_FLEET_REQUESTS = 4
 
 # the kill drill's child: restores the state dir, commits the saved batches
 # one by one, and prints each acknowledged epoch on a line of its own
@@ -3246,6 +3313,307 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
     return {"launches": hymba_launches}
 
 
+def _routes_recorded(moe, record: list):
+    """``moe.route`` wrapped to append each call's chosen experts, sorted
+    (the top-k set a token), to ``record``; returns the plain ``route``."""
+    plain = moe.route
+
+    def recording(p, x, k):
+        vals, idx = plain(p, x, k)
+        record.append(idx.sort(dim=-1).values)
+        return vals, idx
+
+    moe.route = recording
+    return plain
+
+
+def _draw_biases(torch, params, dev) -> None:
+    """Every segment's QKV biases redrawn N(0, XSERVE_BIAS_STD), seed 1."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for seg in params["segments"]:
+        for name in ("bq", "bk", "bv"):
+            seg["attn"][name] = XSERVE_BIAS_STD * torch.randn(
+                seg["attn"][name].shape, generator=gen, device=dev)
+
+
+def phase_xserve(torch, np, dev, ops, ref, card) -> dict:
+    """Phase 23: qwen2.5-3b (dense with QKV bias), musicgen-large (cross,
+    GELU) and phi3.5-moe-42b-a6.6b (moe, 4 of 32 layers) served at full
+    width, one after another; then B4 at every attention shape of their
+    prefills. Returns B4's launches by path."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, moe, transformer
+    from repro_torch.runtime import Request, ServeLoop
+
+    t_phase = time.perf_counter()
+    paths, prefill_s_by = {}, {}
+    for arch, (B, S, layers) in XSERVE.items():
+        t_arch = time.perf_counter()
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        model = Model(cfg)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = model.init(seed=0)
+        if cfg.qkv_bias:
+            _draw_biases(torch, params, dev)
+        torch.cuda.synchronize()
+        n_params = sum(int(t.numel()) for t in _tree_leaves(params))
+        log(f"[23] {arch}: {cfg.n_layers} layers {cfg.plan}, d_model "
+            f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+            f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff} ({cfg.mlp_type}"
+            + (f", {cfg.n_experts} experts top-{cfg.top_k}, capacity factor "
+               f"{cfg.capacity_factor}, {cfg.moe_routing} routing"
+               if cfg.n_experts else "")
+            + f"), QKV bias {cfg.qkv_bias}"
+            + (f" (drawn N(0, {XSERVE_BIAS_STD}))" if cfg.qkv_bias else "")
+            + (f", cond {cfg.cond_len} x {cfg.cond_dim}" if cfg.cond_len else "")
+            + f", vocab {cfg.vocab_size}; {n_params} parameters "
+            f"({cfg.param_dtype}) drawn on the card in "
+            f"{time.perf_counter() - t0:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        rng = np.random.default_rng(23)
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+        cond = None
+        if cfg.cond_len:
+            cond = torch.from_numpy(rng.normal(
+                0, 1, (B, cfg.cond_len, cfg.cond_dim)).astype(np.float32)).to(dev)
+        model.prefill(params, prompts[:1, :128],
+                      cond=None if cond is None else cond[:1])   # warm-up
+        torch.cuda.synchronize()
+
+        # the main path: bf16 prefill, attention through the kernel
+        torch.cuda.reset_peak_memory_stats()
+        ops.flash_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        logits = model.prefill(params, prompts, cond=cond)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = ops.flash_attention_fwd.launches
+        if launches != XSERVE_PREFILL_LAUNCHES[arch]:
+            raise AssertionError(f"{arch} prefill launched the flash kernel "
+                                 f"{launches} times, not "
+                                 f"{XSERVE_PREFILL_LAUNCHES[arch]}")
+        if tuple(logits.shape) != (B, cfg.vocab_size) \
+                or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch}: prefill logits are not a finite "
+                                 f"(B, vocab) matrix")
+        paths[f"{arch} prefill (phase 23)"] = launches
+        log(f"[23] {arch} prefill {B}x{S} bf16: {prefill_s:.4f} s, "
+            f"{B * S / prefill_s:.1f} tok/s, {launches} flash kernel launches, "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+        # (a), (b): the float32 reference, and the kernel in float32
+        routes_ref = []
+        plain_route = _routes_recorded(moe, routes_ref)
+        try:
+            t0 = time.perf_counter()
+            logits_ref = Model(cfg.replace(dtype="float32",
+                                           attention_impl="reference")).prefill(
+                params, prompts, cond=cond)
+            torch.cuda.synchronize()
+            ref_s = time.perf_counter() - t0
+        finally:
+            moe.route = plain_route
+        t0 = time.perf_counter()
+        logits_k32 = Model(cfg.replace(dtype="float32")).prefill(
+            params, prompts, cond=cond)
+        torch.cuda.synchronize()
+        k32_s = time.perf_counter() - t0
+        d32 = float((logits_k32 - logits_ref).abs().max())
+        log(f"[23] {arch} (a) float32 kernel prefill ({k32_s:.3f} s) vs "
+            f"float32 reference ({ref_s:.3f} s): max |Δlogits| {d32:.3e} "
+            f"(≤ {F32_LOGITS_MAX})")
+        if d32 > F32_LOGITS_MAX:
+            raise AssertionError(f"{arch}: float32 kernel prefill disagrees "
+                                 f"with the reference")
+        sigma = float(logits_ref.std())
+        d = (logits - logits_ref).abs()
+        d_mean, row_max = float(d.mean()), d.max(dim=-1).values
+        am_k, am_r = _argmax_rows(torch, logits), _argmax_rows(torch, logits_ref)
+        log(f"[23] {arch} (b) bf16 vs float32 reference: logits std σ "
+            f"{sigma:.4f}; max |Δlogits| by row "
+            f"{[round(float(x) / sigma, 4) for x in row_max]}σ, mean "
+            f"{d_mean:.5f} = {d_mean / sigma:.5f}σ (≤ {MAMBA_BF16_REL_MEAN}σ); "
+            f"argmax equal on {sum(a == b for a, b in zip(am_k, am_r))}/{B} "
+            f"rows")
+        del logits_ref, logits_k32, d
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (f) for moe: the expert loop's share of a second bf16 prefill, and
+        # the routing of the bf16 run against the float32 reference's
+        flipped_rows = torch.zeros(B, dtype=torch.bool, device=dev)
+        if cfg.n_experts:
+            moe_s, routes = [], []
+            plain_moe = transformer.moe_forward
+
+            def timed_moe(*a, **kw):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                y = plain_moe(*a, **kw)
+                torch.cuda.synchronize()
+                moe_s.append(time.perf_counter() - t)
+                return y
+
+            transformer.moe_forward = timed_moe
+            plain_route = _routes_recorded(moe, routes)
+            try:
+                t0 = time.perf_counter()
+                model.prefill(params, prompts, cond=cond)
+                torch.cuda.synchronize()
+                again_s = time.perf_counter() - t0
+            finally:
+                transformer.moe_forward = plain_moe
+                moe.route = plain_route
+            flips = torch.stack([(a != b).any(dim=-1)
+                                 for a, b in zip(routes, routes_ref)])  # (L,B,S)
+            flipped_rows = flips[:, :, -1].any(dim=0)
+            log(f"[23] {arch} (f) prefill again with the expert loop timed: "
+                f"{again_s:.4f} s, of which the expert loop {sum(moe_s):.4f} s "
+                f"({sum(moe_s) / again_s:.1%}) over {len(moe_s)} layers "
+                f"({cfg.n_experts} experts a layer, each cast to bf16 and "
+                f"run on ≤ {math.ceil(cfg.capacity_factor * cfg.top_k * S / cfg.n_experts)} "
+                f"tokens a row); (b) top-{cfg.top_k} sets differing between "
+                f"the bf16 run and the float32 reference: "
+                f"{int(flips.sum())}/{flips.numel()} (token, layer) = "
+                f"{float(flips.float().mean()):.3%}, at the last token of rows "
+                f"{torch.nonzero(flipped_rows).flatten().tolist()}")
+        steady = (~flipped_rows).cpu()
+        bad = (row_max.cpu()[steady] > MAMBA_BF16_REL_MAX * sigma).any() \
+            or (row_max.cpu()[~steady] > XSERVE_FLIP_ROW_MAX * sigma).any()
+        if bool(bad) or d_mean > MAMBA_BF16_REL_MEAN * sigma:
+            raise AssertionError(f"{arch}: bf16 prefill logits outside the "
+                                 f"stated tolerance")
+
+        # (d) 8 requests through a 4-slot bf16 loop (musicgen's with a cond
+        # each); (c) B4 launches a decode step
+        prompts_s = [rng.integers(0, cfg.vocab_size, L)
+                     for L in XSERVE_SERVE_PROMPT_LENS]
+        conds = ([rng.normal(0, 1, (cfg.cond_len, cfg.cond_dim)).astype(np.float32)
+                  for _ in prompts_s] if cfg.cond_len else None)
+        seen = {} if conds else None
+        ops.flash_attention_fwd.launches = 0
+        reqs, serve_s, loop, peak = _serve(
+            torch, ServeLoop, Request, model, params, prompts_s, torch.bfloat16,
+            new=MAMBA_SERVE_NEW, record=seen, conds=conds)
+        n_dec = ops.flash_attention_fwd.launches
+        if n_dec != XSERVE_DECODE_LAUNCHES[arch] * loop.steps:
+            raise AssertionError(f"{arch}: {n_dec} flash kernel launches over "
+                                 f"{loop.steps} decode steps, not "
+                                 f"{XSERVE_DECODE_LAUNCHES[arch]} a step")
+        if n_dec:
+            paths[f"{arch} decode (phase 23)"] = n_dec
+        generated = sum(len(r.output) for r in reqs)
+        log(f"[23] {arch} (d) ServeLoop bf16 {SERVE_SLOTS} slots, {len(reqs)} "
+            f"requests (prompts {list(XSERVE_SERVE_PROMPT_LENS)}, "
+            f"{MAMBA_SERVE_NEW} new each{', a cond each' if conds else ''}): "
+            f"{serve_s:.3f} s, {loop.steps} steps "
+            f"({serve_s / loop.steps * 1e3:.2f} ms a step), "
+            f"{loop.tokens_stepped} tokens stepped "
+            f"({loop.tokens_stepped / serve_s:.1f} tok/s), {generated} "
+            f"generated; (c) {n_dec} flash kernel launches "
+            f"({n_dec // loop.steps} a step); peak device memory "
+            f"{peak / 2**30:.3f} GiB")
+        if conds:
+            # the last 4 requests landed in reused slots, whose cond the
+            # re-attach overwrote: they serve as in a fresh 4-slot loop
+            t0 = time.perf_counter()
+            reused = reqs[SERVE_SLOTS:]
+            seen_fresh = {}
+            fresh, _, _, _ = _serve(
+                torch, ServeLoop, Request, model, params,
+                [r.prompt for r in reused], torch.bfloat16, new=MAMBA_SERVE_NEW,
+                max_seq=max(XSERVE_SERVE_PROMPT_LENS) + MAMBA_SERVE_NEW,
+                record=seen_fresh, conds=[r.cond for r in reused])
+            worst = 0.0
+            for r, f in zip(reused, fresh):
+                got = torch.stack(seen[r.rid])
+                want = torch.stack(seen_fresh[f.rid])
+                if r.output != f.output or got.shape != want.shape:
+                    raise AssertionError(
+                        f"{arch}: request {r.rid} in a reused slot served "
+                        f"{r.output}, in a fresh slot {f.output}")
+                worst = max(worst, float((got - want).abs().max()))
+            log(f"[23] {arch} (d) reused slots vs a fresh {SERVE_SLOTS}-slot "
+                f"loop ({time.perf_counter() - t0:.3f} s): tokens equal for "
+                f"{len(reused)}/{len(reused)} requests, each with its own "
+                f"cond; logits max |Δ| {worst}")
+            if worst != 0.0:
+                raise AssertionError(f"{arch}: a reused slot's logits differ "
+                                     f"from a fresh slot's by {worst}")
+            del seen, seen_fresh, fresh
+        prefill_s_by[arch] = prefill_s
+        log(f"[23] {arch}: {time.perf_counter() - t_arch:.1f} s in all")
+        del model, params, loop, reqs, logits, prompts, cond
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (e) B4 in bf16 at every attention shape of the three prefills (each
+    # model's causal self attention; musicgen's cross attention, the
+    # prefill's 1024 rows and a decode step's one row against cond_len 64
+    # keys, not causal) against its plain version, timed beside it, SDPA
+    # and the bound; then its share of each prefill
+    import torch.nn.functional as F
+    on_card = {}
+    for arch, (B, S, layers) in XSERVE.items():
+        cfg = get_config(arch)
+        Hq, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        shapes = [("self", S, S, True)]
+        if cfg.cond_len:
+            shapes += [("cross", S, cfg.cond_len, False),
+                       ("cross decode", 1, cfg.cond_len, False)]
+        for name, Sq, Sk, causal in shapes:
+            q, k, v = _flash_inputs(torch, dev, 23, B, Hq, Hkv, Sq, Sk, D,
+                                    torch.bfloat16)
+            d_o, d_lse = _compare_flash(torch, ops, ref, q, k, v, causal, None)
+
+            def kernel():
+                return ops.flash_attention_fwd(q, k, v, causal=causal)
+
+            ms = _time_ms(torch, kernel, 20)
+            dev_ms = _device_ms(torch, kernel, 20)
+            plain_ms = _time_ms(torch, lambda: ref.flash_attention_fwd_torch(
+                q, k, v, causal=causal), 3)
+            sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=Hq != Hkv), 20)
+            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+            ops_n = 4 * D * pairs * B * Hq
+            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * Sq
+            t_ops, t_bytes = ops_n / BF16_OPS * 1e3, nbytes / HBM_BPS * 1e3
+            bound_ms = max(t_ops, t_bytes)
+            on_card[arch, name] = dev_ms
+            log(f"[23] (e) B4 at {arch}'s {name} attention (B={B} Hq={Hq} "
+                f"Hkv={Hkv} Sq={Sq} Sk={Sk} D={D}, bf16, "
+                f"{'causal' if causal else 'not causal'}, {card}): kernel vs "
+                f"plain max |Δo| {d_o:.3e}, max |Δlse| {d_lse:.3e}; kernel "
+                f"{ms:.4f} ms a call ({dev_ms:.4f} ms on the card alone), "
+                f"plain {plain_ms:.4f} ms, scaled_dot_product_attention"
+                f"(is_causal={causal}, enable_gqa={Hq != Hkv}) {sdpa_ms:.4f} "
+                f"ms; bound {bound_ms:.4f} ms by "
+                f"{'operations' if bound_ms == t_ops else 'bytes'} ({ops_n} "
+                f"operations {t_ops:.4f} ms, {nbytes} B {t_bytes:.4f} ms)")
+            for x in (ms, dev_ms, plain_ms, sdpa_ms, bound_ms):
+                if not math.isfinite(x) or x <= 0:
+                    raise AssertionError("a timing is not a positive number")
+            del q, k, v
+        n = layers or cfg.n_layers
+        b4_ms = n * on_card[arch, "self"] + (
+            n * on_card[arch, "cross"] if cfg.cond_len else 0.0)
+        log(f"[23] (e) B4 in a {arch} prefill: {n} layers x ("
+            + " + ".join(f"{on_card[arch, nm]:.4f}" for nm, *_ in shapes
+                         if nm != "cross decode")
+            + f") ms on the card = {b4_ms:.3f} ms of the "
+            f"{prefill_s_by[arch] * 1e3:.3f} ms prefill "
+            f"({b4_ms / (prefill_s_by[arch] * 1e3):.1%})")
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[23] phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return paths
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3256,6 +3624,7 @@ def main() -> int:
         print(f"chip_smoke: {ROOT} holds no src/repro_torch; run this script "
               f"from the root of a checkout of the repository", file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     import numpy as np
 
     from repro_torch.core import (
@@ -3568,12 +3937,19 @@ def main() -> int:
 
     # -- 22. training the SSM kinds ------------------------------------------
     ssm_train = phase_ssm_train(torch, np, dev, ops, ref, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 23. the moe and cross kinds and QKV bias served at full width -------
+    xserve_paths = phase_xserve(torch, np, dev, ops, ref, card)
     # B4's launches: Llama's prefill and training, hymba's prefill and
-    # training, added; B5's and B6's: Llama's and hymba's training
+    # training, qwen's, musicgen's and phi's prefills and musicgen's decode,
+    # added; B5's and B6's: Llama's and hymba's training
     b4_paths = {"llama3.2-1b prefill (phase 8)": llama["launches"],
                 "llama3.2-1b training (phase 11)": training["launches"]["fwd"],
                 "hymba-1.5b prefill (phase 21)": mamba_out["launches"],
-                "hymba-1.5b training (phase 22)": ssm_train["launches"][0]}
+                "hymba-1.5b training (phase 22)": ssm_train["launches"][0],
+                **xserve_paths}
     bwd = []
     for name, key, i, line in (("flash_attention_bwd_dq", "dq", 1, 151),
                                ("flash_attention_bwd_dkv", "dkv", 2, 180)):
@@ -3628,6 +4004,7 @@ def main() -> int:
         "bound_by": fl["bound_by"],
         "library_ms": fl["library_ms"],
     }, *bwd]}
+    log(f"[end] the script: {time.perf_counter() - t_script:.1f} s")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,7 +1,6 @@
-"""Architecture registry of the port: the architectures whose block kinds
-the port runs (``dense``, ``ssm``, ``hybrid_swa``/``hybrid_full`` so far).
-The JAX package's other architectures wait for their block kinds
-(ROADMAP A.7).
+"""Architecture registry of the port: the JAX package's architectures
+except gemma-2b, whose head_dim of 256 the flash-attention kernels do not
+take (they take 64 and 128; ROADMAP A.7).
 
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_config(arch_id).reduced()`` is the smoke-test size.
@@ -14,10 +13,21 @@ from repro_torch.configs.base import (
     shape_applicable,
 )
 from repro_torch.configs.falcon_mamba_7b import CONFIG as falcon_mamba_7b
+from repro_torch.configs.grok1_314b import CONFIG as grok1_314b
 from repro_torch.configs.hymba_1_5b import CONFIG as hymba_1_5b
 from repro_torch.configs.llama3_2_1b import CONFIG as llama3_2_1b
+from repro_torch.configs.llama3_2_vision_11b import CONFIG as llama3_2_vision_11b
+from repro_torch.configs.musicgen_large import CONFIG as musicgen_large
+from repro_torch.configs.phi3_5_moe import CONFIG as phi3_5_moe
+from repro_torch.configs.qwen2_5_3b import CONFIG as qwen2_5_3b
+from repro_torch.configs.starcoder2_15b import CONFIG as starcoder2_15b
 
-REGISTRY = {c.name: c for c in [llama3_2_1b, falcon_mamba_7b, hymba_1_5b]}
+REGISTRY = {
+    c.name: c for c in [
+        llama3_2_1b, qwen2_5_3b, starcoder2_15b, phi3_5_moe, grok1_314b,
+        falcon_mamba_7b, musicgen_large, hymba_1_5b, llama3_2_vision_11b,
+    ]
+}
 
 ARCH_IDS = list(REGISTRY)
 
@@ -25,7 +35,7 @@ ARCH_IDS = list(REGISTRY)
 def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
         raise KeyError(f"unknown arch {name!r}; the port runs {ARCH_IDS} "
-                       f"(the other block kinds wait, ROADMAP A.7)")
+                       f"(gemma-2b waits for head_dim 256, ROADMAP A.7)")
     return REGISTRY[name]
 
 

@@ -1,21 +1,21 @@
 """Config schema: model architectures, input shapes, and the layer plan.
 
-The port's copy of the JAX package's ``configs/base.py``, cut to the fields
-the ported block kinds read in serving and training: the same names, the
-same defaults and the same ``reduced()`` for them, so a test can build one
-configuration in both packages and compare like with like. The fields of
-the MoE and cross kinds and the MLP variants come with the slices whose
-code reads them (ROADMAP A.7).
+The port's copy of the JAX package's ``configs/base.py``: the same fields,
+names, defaults and ``reduced()``, so a test can build one configuration in
+both packages and compare like with like.
 
 A model is a ``ModelConfig`` plus a *layer plan*: a list of
 (block_kind, count) segments. Layers inside a segment are homogeneous and
 their parameters are stacked over a leading layer dimension. Block kinds:
 
   dense        — self-attn + MLP
+  moe          — self-attn + mixture-of-experts FFN
+  cross        — self-attn + cross-attn (conditioning) + MLP
   ssm          — Mamba1 mixer, no MLP
   hybrid_swa   — parallel attn (sliding window) + Mamba heads, then MLP
   hybrid_full  — parallel attn (full) + Mamba heads, then MLP
-  moe, cross   — not ported yet; ``Model`` refuses a plan naming them
+
+Every kind serves; ``moe`` and ``cross`` do not train yet (ROADMAP A.7).
 
 ``attention_impl`` selects the attention of the prefill/forward path:
 ``"kernel"`` (the default) goes through ``kernels.ops.flash_attention_fwd``,
@@ -46,8 +46,16 @@ class ModelConfig:
     head_dim: int = 0                # 0 → d_model // n_heads
     # layer plan: tuple of (block_kind, count); () → [(family's kind, n_layers)]
     layer_plan: Tuple[Tuple[str, int], ...] = ()
+    # activations / details
+    mlp_type: str = "swiglu"         # swiglu | geglu | gelu
+    qkv_bias: bool = False
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
+    # MoE
+    n_experts: int = 0
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    moe_routing: str = "local"       # local (row-local dispatch) | global
     # SSM (mamba1)
     ssm_state: int = 0
     d_inner: int = 0                 # 0 → 2 * d_model
@@ -56,13 +64,16 @@ class ModelConfig:
     ssm_chunk: int = 64              # chunked-scan granularity
     # attention windows (hybrid)
     swa_window: Optional[int] = None
+    # conditioning (audio text-cond / vlm image layers)
+    cond_len: int = 0
+    cond_dim: int = 0
     # numerics / impl
     dtype: str = "bfloat16"          # compute dtype
     param_dtype: str = "float32"
     attention_impl: str = "kernel"   # kernel | reference
     # training
     remat: bool = True
-    optimizer: str = "adamw"         # adamw (adafactor waits, ROADMAP A.7)
+    optimizer: str = "adamw"         # adamw | adafactor (waits, ROADMAP A.7)
     # long-context capability (sub-quadratic decode)
     supports_long_context: bool = False
 
@@ -90,7 +101,7 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
     def reduced(self, n_layers: int = 2, d_model: int = 64, d_ff: int = 128,
-                vocab: int = 512) -> "ModelConfig":
+                vocab: int = 512, n_experts: Optional[int] = None) -> "ModelConfig":
         """A smoke-test-sized config of the same family/plan shape."""
         heads = max(2, min(4, self.n_heads))
         kv = max(1, min(heads, self.n_kv_heads))
@@ -104,13 +115,17 @@ class ModelConfig:
                 if not kinds or kinds[-1] != kind:
                     kinds.append(kind)
             plan = tuple((k, 1) for k in kinds[:n_layers])
+        ne = self.n_experts and (n_experts if n_experts is not None
+                                 else min(4, self.n_experts))
         return self.replace(
             n_layers=len(plan) or n_layers,
             d_model=d_model, d_ff=d_ff, vocab_size=vocab,
             n_heads=heads, n_kv_heads=kv, head_dim=0, layer_plan=plan,
+            n_experts=ne or 0,
             d_inner=2 * d_model if self.family in ("ssm", "hybrid") else 0,
             ssm_state=min(self.ssm_state, 8) if self.ssm_state else 0,
-            dt_rank=0,
+            dt_rank=0, cond_len=min(self.cond_len, 8) if self.cond_len else 0,
+            cond_dim=d_model if self.cond_dim else 0,
             swa_window=min(self.swa_window, 32) if self.swa_window else None,
             dtype="float32", param_dtype="float32",
         )

@@ -9,12 +9,20 @@
       from seed 0: one ``Model.prefill`` of the prompts (the flash-attention
       kernel, one launch per attention layer), then ``greedy_decode``, which
       steps the prompts and the new tokens through the cached decode path.
-      ``--arch`` is one of ``llama3.2-1b``, ``falcon-mamba-7b`` (Mamba
-      layers only) and ``hymba-1.5b`` (attention and Mamba heads in every
-      layer, a sliding window on 29 of 32); for the last two the prompt
-      length is a multiple of the scan chunk (64) or shorter.
-      ``--reduced`` serves a smoke-test size (2 layers, d_model 256,
-      attention head_dim 64); ``--device cpu`` runs the plain PyTorch path.
+      ``--arch`` is any of the registry's (``repro_torch.configs.ARCH_IDS``):
+      ``llama3.2-1b``, ``qwen2.5-3b`` and ``starcoder2-15b`` (dense, QKV
+      bias), ``phi3.5-moe-42b-a6.6b`` and ``grok-1-314b`` (mixture of
+      experts), ``falcon-mamba-7b`` (Mamba layers only), ``hymba-1.5b``
+      (attention and Mamba heads in every layer, a sliding window on 29 of
+      32), ``musicgen-large`` and ``llama-3.2-vision-11b`` (cross
+      attention). For the Mamba kinds the prompt length is a multiple of the
+      scan chunk (64) or shorter. A conditioned arch (musicgen-large,
+      llama-3.2-vision-11b) gets a conditioning input cond ~ N(0, 1) of
+      (batch, cond_len, cond_dim) from the seeded generator, standing in for
+      the EnCodec/T5 or vision frontend's embeddings, in the prefill and in
+      every decode step. ``--reduced`` serves a smoke-test size (2 layers,
+      d_model 256, attention head_dim 64); ``--device cpu`` runs the plain
+      PyTorch path. Only the configs that fit one card run at full width.
 
   --task detect: the batched detection service (``core/serving.py``). A
       corpus is held in memory; concurrent requests — each a few query
@@ -88,11 +96,15 @@ def serve_lm(args):
     rng = np.random.default_rng(0)
     prompts = torch.as_tensor(
         rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len)))
+    cond = None
+    if cfg.cond_len:
+        cond = torch.as_tensor(rng.normal(
+            0, 1, (args.batch, cfg.cond_len, cfg.cond_dim)), dtype=torch.float32)
 
     ops.flash_attention_fwd.launches = 0
     _sync(model.device)
     t0 = time.perf_counter()
-    model.prefill(params, prompts)
+    model.prefill(params, prompts, cond=cond)
     _sync(model.device)
     dt = time.perf_counter() - t0
     print(f"[serve] prefill {tuple(prompts.shape)} on {model.device} in "
@@ -100,7 +112,7 @@ def serve_lm(args):
           f"{ops.flash_attention_fwd.launches} flash-attention kernel launches")
 
     t0 = time.perf_counter()
-    out = greedy_decode(model, params, prompts, args.new_tokens)
+    out = greedy_decode(model, params, prompts, args.new_tokens, cond=cond)
     _sync(model.device)
     dt = time.perf_counter() - t0
     total = args.batch * (args.prompt_len + args.new_tokens)
@@ -357,7 +369,8 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     # lm args
-    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    help="an arch of repro_torch.configs.ARCH_IDS (lm)")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)

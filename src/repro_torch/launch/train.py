@@ -17,6 +17,9 @@ SSM block kinds through the chunk-checkpointed scan
 (``models/mamba.py:SelectiveScan``); falcon-mamba-7b's 64 layers with
 AdamW need ~116 GB of parameters and optimizer state, more than one
 80 GB card holds, until a factored optimizer is ported (ROADMAP A.7).
+The ``moe`` and ``cross`` kinds (phi3.5-moe, grok-1, musicgen-large,
+llama-3.2-vision-11b) serve but do not train yet: their arch raises
+``NotImplementedError`` before anything is built.
 """
 from __future__ import annotations
 
@@ -44,9 +47,12 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import Prefetcher, batches, synthetic_corpus
     from repro_torch.models import Model
+    from repro_torch.models.transformer import check_kind
     from repro_torch.runtime.train_loop import train
 
     cfg = get_config(args.arch)
+    for kind, _ in cfg.plan:
+        check_kind(kind, training=True)
     if args.reduced:
         # 4 heads of 64: the kernels take head_dim 64 or 128
         cfg = cfg.reduced(d_model=256, d_ff=512)

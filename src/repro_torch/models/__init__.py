@@ -1,6 +1,7 @@
-"""The LM stack of the port: the ``dense`` block kind (self attention through
-the hand-written flash-attention kernels, a gated MLP) with KV-cached decode
-and a differentiable loss."""
+"""The LM stack of the port: every block kind of the JAX package (``dense``,
+``moe``, ``cross``, ``ssm``, ``hybrid_swa``, ``hybrid_full``; attention
+through the hand-written flash-attention kernels) with KV-cached decode and
+a differentiable loss."""
 from repro_torch.models.model import (
     Model,
     greedy_decode,

@@ -1,13 +1,18 @@
-"""Self attention with GQA, RoPE, sliding windows, and KV caching.
+"""Self/cross attention with GQA, RoPE, sliding windows, QKV bias and KV
+caching.
 
 Layouts (the JAX package's):
-  weights  wq (D, H, hd) · wk/wv (D, KV, hd) · wo (H, hd, D)
+  weights  wq (D, H, hd) · wk/wv (D, KV, hd) · wo (H, hd, D); cross
+           attention's wk/wv read cond_dim (cond_dim, KV, hd); with
+           ``cfg.qkv_bias`` also bq (H, hd) · bk/bv (KV, hd)
   cache    k/v (B, KV, S_cache, hd) + pos_ids (B, S_cache) absolute positions
            (pos_ids makes rotating sliding-window caches maskable).
 The prefill/forward attention goes through ``kernels.ops.flash_attention``
 (``cfg.attention_impl``: the hand-written kernel, or the plain reference).
-One-token decode attention is plain torch, as the JAX package leaves it to
-jnp. ``cross_attention`` waits for the ``cross`` block kind (ROADMAP A.7).
+One-token decode self attention is plain torch, as the JAX package leaves
+it to jnp. Cross attention (not causal, no RoPE) goes through
+``flash_attention`` in prefill and decode alike; as in the JAX package,
+nothing caches the conditioning's k/v, which each call projects again.
 """
 from __future__ import annotations
 
@@ -21,33 +26,52 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.common import apply_rope, dense_init, make_rope
 
 
-def init_attention(gen: torch.Generator, cfg: ModelConfig):
+def init_attention(gen: torch.Generator, cfg: ModelConfig, cross: bool = False):
     D = cfg.d_model
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-    return {
+    kv_in = cfg.cond_dim if cross else D
+    p = {
         "wq": dense_init(gen, (D, H, hd), in_axis_size=D),
-        "wk": dense_init(gen, (D, KV, hd), in_axis_size=D),
-        "wv": dense_init(gen, (D, KV, hd), in_axis_size=D),
+        "wk": dense_init(gen, (kv_in, KV, hd), in_axis_size=kv_in),
+        "wv": dense_init(gen, (kv_in, KV, hd), in_axis_size=kv_in),
         "wo": dense_init(gen, (H, hd, D), in_axis_size=H * hd),
     }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((H, hd), device=gen.device)
+        p["bk"] = torch.zeros((KV, hd), device=gen.device)
+        p["bv"] = torch.zeros((KV, hd), device=gen.device)
+    return p
 
 
-def _project_qkv(p, x):
+def _project_qkv(p, x, kv_src, cfg: ModelConfig):
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bhsk", x, p["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bhsk", x, p["wv"].to(dt))
+    k = torch.einsum("bsd,dhk->bhsk", kv_src, p["wk"].to(dt))
+    v = torch.einsum("bsd,dhk->bhsk", kv_src, p["wv"].to(dt))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(dt)[None, :, None, :]
+        k = k + p["bk"].to(dt)[None, :, None, :]
+        v = v + p["bv"].to(dt)[None, :, None, :]
     return q, k, v
 
 
 def self_attention(p, x, rope, cfg: ModelConfig, window: Optional[int] = None):
     """Training/prefill forward. x (B, S, D) → (B, S, D), causal."""
     cos, sin = rope
-    q, k, v = _project_qkv(p, x)
+    q, k, v = _project_qkv(p, x, x, cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                         causal=True, window=window, impl=cfg.attention_impl)
+    return torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(x.dtype))
+
+
+def cross_attention(p, x, cond, cfg: ModelConfig):
+    """x (B, S, D) attends over cond (B, T, cond_dim); not causal, no rope.
+    The prefill (S query rows) and the decode step (one) alike."""
+    q, k, v = _project_qkv(p, x, cond, cfg)
+    o = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                        causal=False, impl=cfg.attention_impl)
     return torch.einsum("bhsk,hkd->bsd", o, p["wo"].to(x.dtype))
 
 
@@ -84,7 +108,7 @@ def decode_self_attention(p, x, cache_l, pos, cfg: ModelConfig,
     returns the same dict.
     """
     B = x.shape[0]
-    q, k_new, v_new = _project_qkv(p, x)        # (B,H,1,hd), (B,KV,1,hd)
+    q, k_new, v_new = _project_qkv(p, x, x, cfg)  # (B,H,1,hd), (B,KV,1,hd)
     k, v, pos_ids = cache_l["k"], cache_l["v"], cache_l["pos_ids"]
     S_c = k.shape[2]
     hd = cfg.resolved_head_dim

@@ -11,7 +11,12 @@ each call, as in JAX; the ``Model`` module holds the configuration and
 the device. ``loss`` is differentiable: autograd through
 the flash-attention Function (``kernels.ops.FlashAttention``) on the
 kernel path and the chunk-checkpointed scan (``mamba.SelectiveScan``) of
-the SSM kinds, and with ``cfg.remat`` through per-layer checkpoints.
+the SSM kinds, and with ``cfg.remat`` through per-layer checkpoints; it
+raises for the ``moe`` and ``cross`` kinds, which serve but do not train
+yet. A configuration with ``cond_len`` (the ``cross`` kind's
+conditioning, precomputed frame or patch embeddings (B, cond_len,
+cond_dim)) takes ``cond`` in ``forward``, ``prefill``, ``decode_step`` and
+``greedy_decode``, cast to the compute dtype.
 """
 from __future__ import annotations
 
@@ -70,42 +75,59 @@ class Model(nn.Module):
             tokens = torch.as_tensor(np.asarray(tokens))
         return tokens.to(device=self.device, dtype=torch.long)
 
+    def _cond(self, cond):
+        """``cond`` as a tensor in the compute dtype on the model's device;
+        a plan with a ``cross`` segment needs one."""
+        if cond is None:
+            if any(kind == "cross" for kind, _ in self.cfg.plan):
+                raise ValueError(f"{self.cfg.name} has cross-attention layers: "
+                                 f"pass cond (B, {self.cfg.cond_len}, "
+                                 f"{self.cfg.cond_dim})")
+            return None
+        if not isinstance(cond, torch.Tensor):
+            cond = torch.as_tensor(np.asarray(cond))
+        return cond.to(device=self.device, dtype=DTYPES[self.cfg.dtype])
+
     def _head(self, params):
         return (params["embed"].T if self.cfg.tie_embeddings
                 else params["lm_head"])
 
     # --------------------------------------------------------------- forward
-    def _stack(self, params, tokens):
+    def _stack(self, params, tokens, cond=None):
         cfg = self.cfg
         dt = DTYPES[cfg.dtype]
         tokens = self._tokens(tokens)
         x = params["embed"][tokens].to(dt)
+        cond = self._cond(cond)
         rope = make_rope(torch.arange(tokens.shape[1], device=self.device),
                          cfg.resolved_head_dim, cfg.rope_theta)
         for seg_params, (kind, _) in zip(params["segments"], cfg.plan):
-            x = run_segment(kind, seg_params, x, rope, cfg)
+            x = run_segment(kind, seg_params, x, rope, cfg, cond=cond)
         return rms_norm(x, params["final_norm"])
 
-    def forward(self, params, tokens):
+    def forward(self, params, tokens, cond=None):
         """tokens (B, S) → logits (B, S, vocab) float32."""
-        x = self._stack(params, tokens)
+        x = self._stack(params, tokens, cond=cond)
         return x.to(torch.float32) @ self._head(params).to(torch.float32)
 
     def loss(self, params, batch):
-        """batch: {tokens (B, S), labels (B, S)} → mean token cross-entropy
-        (a float32 scalar) over the full float32 logits, as the JAX
-        package's ``Model.loss`` computes it: logsumexp minus the gold
-        logit, averaged."""
-        logits = self.forward(params, batch["tokens"])
+        """batch: {tokens (B, S), labels (B, S), cond?} → mean token
+        cross-entropy (a float32 scalar) over the full float32 logits, as
+        the JAX package's ``Model.loss`` computes it: logsumexp minus the
+        gold logit, averaged. Raises ``NotImplementedError`` for a plan
+        with a kind the port does not train yet (``moe``, ``cross``)."""
+        for kind, _ in self.cfg.plan:
+            check_kind(kind, training=True)
+        logits = self.forward(params, batch["tokens"], cond=batch.get("cond"))
         labels = self._tokens(batch["labels"])
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, labels[..., None])[..., 0]
         return torch.mean(lse - gold)
 
-    def prefill(self, params, tokens):
+    def prefill(self, params, tokens, cond=None):
         """Serving prefill: last-position logits (B, vocab) only — the
         (B, S, vocab) logits tensor never exists."""
-        x = self._stack(params, tokens)[:, -1]
+        x = self._stack(params, tokens, cond=cond)[:, -1]
         return x.to(torch.float32) @ self._head(params).to(torch.float32)
 
     # ---------------------------------------------------------------- decode
@@ -114,8 +136,9 @@ class Model(nn.Module):
                                    dtype=dtype, device=self.device)
                 for kind, count in self.cfg.plan]
 
-    def decode_step(self, params, cache, tokens, pos):
-        """tokens (B,), pos an int or a (B,) per-row position vector →
+    def decode_step(self, params, cache, tokens, pos, cond=None):
+        """tokens (B,), pos an int or a (B,) per-row position vector, cond
+        (B, cond_len, cond_dim) where the plan has ``cross`` layers →
         (logits (B, vocab) float32, cache). The cache is updated in place
         and returned."""
         cfg = self.cfg
@@ -127,15 +150,17 @@ class Model(nn.Module):
             pos = (pos.to(device=self.device, dtype=torch.long) if pos.dim()
                    else int(pos))
         x = params["embed"][tokens[:, None]].to(dt)
+        cond = self._cond(cond)
         for seg_params, seg_cache, (kind, _) in zip(params["segments"], cache,
                                                     cfg.plan):
-            x, _ = run_segment_decode(kind, seg_params, x, seg_cache, pos, cfg)
+            x, _ = run_segment_decode(kind, seg_params, x, seg_cache, pos, cfg,
+                                      cond=cond)
         x = rms_norm(x, params["final_norm"])
         logits = x[:, 0].to(torch.float32) @ self._head(params).to(torch.float32)
         return logits, cache
 
 
-def greedy_decode(model: Model, params, prompt_tokens, n_new: int,
+def greedy_decode(model: Model, params, prompt_tokens, n_new: int, cond=None,
                   cache_len: Optional[int] = None):
     """Reference serving loop: the prompt is stepped through ``decode_step``
     one token at a time (exercising the decode path end to end), then
@@ -145,10 +170,11 @@ def greedy_decode(model: Model, params, prompt_tokens, n_new: int,
     B, S0 = prompt.shape
     total = S0 + n_new
     cache = model.init_cache(B, cache_len or total, dtype=DTYPES[cfg.dtype])
+    cond = model._cond(cond)
     tok = prompt[:, 0]
     out = [tok]
     for t in range(total - 1):
-        logits, cache = model.decode_step(params, cache, tok, t)
+        logits, cache = model.decode_step(params, cache, tok, t, cond=cond)
         nxt = torch.argmax(logits, dim=-1)
         tok = prompt[:, t + 1] if t + 1 < S0 else nxt
         out.append(tok)

@@ -7,10 +7,10 @@ loop over the stacked layer dimension. With ``cfg.remat`` each layer runs
 under ``torch.utils.checkpoint`` (the counterpart of the JAX package's
 ``jax.checkpoint``) whenever autograd records a graph: only the layer's
 input is kept, and the backward recomputes the layer's forward. The port
-serves and trains the ``dense``, ``ssm``, ``hybrid_swa`` and
-``hybrid_full`` block kinds (the scan's backward is
-``mamba.SelectiveScan``); ``moe`` and ``cross`` raise
-``NotImplementedError`` until they are ported (ROADMAP A.7).
+serves every block kind of the JAX package (``dense``, ``moe``, ``cross``,
+``ssm``, ``hybrid_swa``, ``hybrid_full``) and trains all but ``moe`` and
+``cross`` (the scan's backward is ``mamba.SelectiveScan``); training those
+two raises ``NotImplementedError`` until their slice (ROADMAP A.7).
 """
 from __future__ import annotations
 
@@ -21,6 +21,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (
+    cross_attention,
     decode_self_attention,
     init_attention,
     init_kv_cache,
@@ -34,19 +35,25 @@ from repro_torch.models.mamba import (
     mamba_forward,
 )
 from repro_torch.models.mlp import init_mlp, mlp_forward
+from repro_torch.models.moe import init_moe, moe_forward
 
-PORTED_KINDS = ("dense", "ssm", "hybrid_swa", "hybrid_full")
-ATTN_KINDS = {"dense", "hybrid_swa", "hybrid_full"}
+PORTED_KINDS = ("dense", "moe", "cross", "ssm", "hybrid_swa", "hybrid_full")
+TRAINED_KINDS = ("dense", "ssm", "hybrid_swa", "hybrid_full")
+ATTN_KINDS = {"dense", "moe", "cross", "hybrid_swa", "hybrid_full"}
 SSM_KINDS = {"ssm", "hybrid_swa", "hybrid_full"}
 
 
-def check_kind(kind: str) -> None:
-    """Raise for a block kind the port does not run yet; every ported kind
-    serves and trains."""
+def check_kind(kind: str, training: bool = False) -> None:
+    """Raise for a block kind the port does not run, or, with ``training``,
+    does not train yet."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet (ROADMAP A.7); the port "
+            f"block kind {kind!r} is not ported (ROADMAP A.7); the port "
             f"runs {PORTED_KINDS}")
+    if training and kind not in TRAINED_KINDS:
+        raise NotImplementedError(
+            f"training the {kind!r} block kind comes with the next slice "
+            f"(ROADMAP A.7); the port trains {TRAINED_KINDS}")
 
 
 def _window(kind: str, cfg: ModelConfig) -> Optional[int]:
@@ -66,12 +73,18 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig):
     p = {"norm1": zeros()}
     if kind in ATTN_KINDS:
         p["attn"] = init_attention(gen, cfg)
+    if kind == "cross":
+        p["xattn"] = init_attention(gen, cfg, cross=True)
+        p["norm_x"] = zeros()
     if kind in SSM_KINDS:
         p["mamba"] = init_mamba(gen, cfg)
     if kind.startswith("hybrid"):
         p["norm_a"] = zeros()
         p["norm_m"] = zeros()
-    if kind != "ssm":                                    # dense/hybrid MLP
+    if kind == "moe":
+        p["moe"] = init_moe(gen, cfg)
+        p["norm2"] = zeros()
+    elif kind != "ssm":                                  # dense/cross/hybrid MLP
         p["mlp"] = init_mlp(gen, cfg)
         p["norm2"] = zeros()
     return p
@@ -108,7 +121,7 @@ def _unstack(seg_params):
 # forward (training / prefill)
 # ---------------------------------------------------------------------------
 
-def block_forward(kind: str, p, x, rope, cfg: ModelConfig):
+def block_forward(kind: str, p, x, rope, cfg: ModelConfig, cond=None):
     check_kind(kind)
     h = rms_norm(x, p["norm1"])
     if kind == "ssm":
@@ -119,18 +132,29 @@ def block_forward(kind: str, p, x, rope, cfg: ModelConfig):
         x = x + 0.5 * (rms_norm(a, p["norm_a"]) + rms_norm(m, p["norm_m"]))
     else:
         x = x + self_attention(p["attn"], h, rope, cfg)
+    return _cross_and_ffn(kind, p, x, cond, cfg)
+
+
+def _cross_and_ffn(kind: str, p, x, cond, cfg: ModelConfig):
+    """The block's tail after self attention, shared by the prefill and
+    the decode step: cross attention (``cross``), then the MoE FFN or the
+    MLP."""
+    if kind == "cross":
+        x = x + cross_attention(p["xattn"], rms_norm(x, p["norm_x"]), cond, cfg)
     ff_in = rms_norm(x, p["norm2"])
-    return x + mlp_forward(p["mlp"], ff_in)
+    if kind == "moe":
+        return x + moe_forward(p["moe"], ff_in, cfg)
+    return x + mlp_forward(p["mlp"], ff_in, cfg)
 
 
-def run_segment(kind: str, seg_params, x, rope, cfg: ModelConfig):
+def run_segment(kind: str, seg_params, x, rope, cfg: ModelConfig, cond=None):
     remat = cfg.remat and torch.is_grad_enabled()
     for p_l in _unstack(seg_params):
         if remat:
-            x = checkpoint(block_forward, kind, p_l, x, rope, cfg,
+            x = checkpoint(block_forward, kind, p_l, x, rope, cfg, cond,
                            use_reentrant=False)
         else:
-            x = block_forward(kind, p_l, x, rope, cfg)
+            x = block_forward(kind, p_l, x, rope, cfg, cond)
     return x
 
 
@@ -151,7 +175,7 @@ def init_segment_cache(kind: str, count: int, cfg: ModelConfig, batch: int,
     return c
 
 
-def block_decode(kind: str, p, x, cache_l, pos, cfg: ModelConfig):
+def block_decode(kind: str, p, x, cache_l, pos, cfg: ModelConfig, cond=None):
     """x (B,1,D) one-token step. cache_l: this layer's slice (no leading L),
     updated in place."""
     check_kind(kind)
@@ -167,14 +191,14 @@ def block_decode(kind: str, p, x, cache_l, pos, cfg: ModelConfig):
     else:
         a, _ = decode_self_attention(p["attn"], h, cache_l["kv"], pos, cfg)
         x = x + a
-    ff_in = rms_norm(x, p["norm2"])
-    return x + mlp_forward(p["mlp"], ff_in), cache_l
+    return _cross_and_ffn(kind, p, x, cond, cfg), cache_l
 
 
-def run_segment_decode(kind: str, seg_params, x, cache, pos, cfg: ModelConfig):
+def run_segment_decode(kind: str, seg_params, x, cache, pos, cfg: ModelConfig,
+                       cond=None):
     """One decode step through a segment; ``cache`` is updated in place and
     returned."""
     for i in range(_n_layers(seg_params)):
         x, _ = block_decode(kind, _layer(seg_params, i), x, _layer(cache, i),
-                            pos, cfg)
+                            pos, cfg, cond)
     return x, cache

@@ -13,6 +13,12 @@ when a request attaches to it. (The JAX package's loop resets only the
 slot's counters, and a request in a reused slot starts from the state its
 predecessor left there: ROADMAP C17.)
 
+A model with cross-attention layers (``cfg.cond_len``) decodes every slot
+against its request's ``cond`` (cond_len, cond_dim), zeros where the request
+has none; the slot's row is written when the request attaches. (The JAX
+package's loop feeds zeros to every slot at every step and never reads
+``Request.cond``: ROADMAP C19.)
+
 Prompts are teacher-forced through the decode step one token at a time, as
 in the JAX package's loop; the logits that follow a prompt's last token
 give its first generated token.
@@ -32,6 +38,7 @@ class Request:
     rid: int
     prompt: np.ndarray              # (L,) int
     max_new: int = 16
+    cond: Optional[np.ndarray] = None   # (cond_len, cond_dim) conditioning
     # filled by the loop:
     output: list = field(default_factory=list)
     done: bool = False
@@ -54,6 +61,9 @@ class ServeLoop:
         self.max_seq = max_seq
         self.eos_id = eos_id
         self.cache = model.init_cache(n_slots, max_seq, dtype=dtype)
+        cfg = model.cfg
+        self.cond = (torch.zeros((n_slots, cfg.cond_len, cfg.cond_dim),
+                                 device=model.device) if cfg.cond_len else None)
         self.slot_req: list[Optional[Request]] = [None] * n_slots
         self.slot_pos = np.zeros(n_slots, np.int64)       # next position
         self.slot_cursor = np.zeros(n_slots, np.int64)    # prompt cursor
@@ -75,6 +85,9 @@ class ServeLoop:
                 for seg in self.cache:
                     for state in seg.get("ssm", {}).values():
                         state[:, i].zero_()
+                if self.cond is not None:
+                    self.cond[i] = (0.0 if req.cond is None else
+                                    torch.as_tensor(np.asarray(req.cond)))
 
     def _next_tokens(self, last_logits) -> np.ndarray:
         toks = np.zeros(self.n_slots, np.int64)
@@ -101,7 +114,7 @@ class ServeLoop:
             # one step for ALL slots, each at its own position
             logits, self.cache = self.model.decode_step(
                 self.params, self.cache, torch.from_numpy(toks),
-                torch.from_numpy(self.slot_pos.copy()))
+                torch.from_numpy(self.slot_pos.copy()), cond=self.cond)
             logits = logits.cpu().numpy()
             last_logits[active] = logits[active]
             self.steps += 1

@@ -244,10 +244,17 @@ def test_serve_loop_matches_jax(pair):
 
 
 def test_unported_kinds_and_options_raise():
+    """A kind the JAX package lacks raises; ``moe`` and ``cross`` serve but
+    their training raises (ROADMAP A.7)."""
     cfg = get_config("llama3.2-1b").reduced(**REDUCED)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        Model(cfg.replace(layer_plan=(("mamba2", 2),)), device="cpu")
+    batch = {"tokens": _tokens(1, (1, 8)), "labels": _tokens(2, (1, 8))}
     for kind in ("moe", "cross"):
+        model = Model(cfg.replace(layer_plan=((kind, 2),), n_experts=4,
+                                  cond_len=8, cond_dim=256), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            Model(cfg.replace(layer_plan=((kind, 2),)), device="cpu")
+            model.loss(model.init(seed=0), batch)
     with pytest.raises(ValueError, match="attention_impl"):
         Model(cfg.replace(attention_impl="pallas"), device="cpu")
     with pytest.raises(KeyError, match="ROADMAP A.7"):
