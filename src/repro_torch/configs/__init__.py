@@ -1,6 +1,6 @@
-"""Architecture registry of the port: the JAX package's architectures
-except gemma-2b, whose head_dim of 256 the flash-attention kernels do not
-take (they take 64 and 128; ROADMAP A.7).
+"""Architecture registry of the port: every architecture of the JAX
+package, in its order (the flash-attention kernels take gemma-2b's
+head_dim of 256 beside 64 and 128).
 
 ``get_config(arch_id)`` returns the full-size ModelConfig;
 ``get_config(arch_id).reduced()`` is the smoke-test size.
@@ -13,6 +13,7 @@ from repro_torch.configs.base import (
     shape_applicable,
 )
 from repro_torch.configs.falcon_mamba_7b import CONFIG as falcon_mamba_7b
+from repro_torch.configs.gemma_2b import CONFIG as gemma_2b
 from repro_torch.configs.grok1_314b import CONFIG as grok1_314b
 from repro_torch.configs.hymba_1_5b import CONFIG as hymba_1_5b
 from repro_torch.configs.llama3_2_1b import CONFIG as llama3_2_1b
@@ -24,8 +25,9 @@ from repro_torch.configs.starcoder2_15b import CONFIG as starcoder2_15b
 
 REGISTRY = {
     c.name: c for c in [
-        llama3_2_1b, qwen2_5_3b, starcoder2_15b, phi3_5_moe, grok1_314b,
-        falcon_mamba_7b, musicgen_large, hymba_1_5b, llama3_2_vision_11b,
+        llama3_2_1b, qwen2_5_3b, gemma_2b, starcoder2_15b, phi3_5_moe,
+        grok1_314b, falcon_mamba_7b, musicgen_large, hymba_1_5b,
+        llama3_2_vision_11b,
     ]
 }
 
@@ -34,8 +36,7 @@ ARCH_IDS = list(REGISTRY)
 
 def get_config(name: str) -> ModelConfig:
     if name not in REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port runs {ARCH_IDS} "
-                       f"(gemma-2b waits for head_dim 256, ROADMAP A.7)")
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_IDS}")
     return REGISTRY[name]
 
 

@@ -15,7 +15,7 @@ their parameters are stacked over a leading layer dimension. Block kinds:
   hybrid_swa   — parallel attn (sliding window) + Mamba heads, then MLP
   hybrid_full  — parallel attn (full) + Mamba heads, then MLP
 
-Every kind serves; ``moe`` and ``cross`` do not train yet (ROADMAP A.7).
+Every kind serves and trains.
 
 ``attention_impl`` selects the attention of the prefill/forward path:
 ``"kernel"`` (the default) goes through ``kernels.ops.flash_attention_fwd``,

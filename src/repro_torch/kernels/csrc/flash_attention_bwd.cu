@@ -55,12 +55,20 @@
 // hiᵀ·dO + loᵀ·dO and dK += dSᵀ·Q = hiᵀ·Q + loᵀ·Q, every pass exact into
 // float32 accumulators. 6 bf16 passes for 4 products: 1.5× the tensor
 // work that the bound counts.
-// Design: grid (B·Hkv, ceil(Sk/64)), the earliest (heaviest under causal
+// Design: grid (B·Hkv, ceil(Sk/64)[, 2 at D = 256]), the earliest (heaviest under causal
 // masking) key tiles of every head first. A block of 4 warps owns 64 keys
 // of one kv head (warp w owns keys 16w..16w+15) and loops over the group's
 // q heads and, for each, the query tiles that can see its keys (64 rows at
-// D = 64, 32 at D = 128), so dk/dv come out group-summed, deterministic,
-// with no atomics. Q, dO, lse and delta tiles stream through a 2-stage
+// D = 64, 32 at D = 128 and 256), so dk/dv come out group-summed,
+// deterministic, with no atomics. At D = 256 (gemma-2b) dk and dv in
+// registers would be 2·(D/8)·4 = 256 float32 a thread, more than the
+// register file gives one: the grid gains a third axis, the half of the
+// head dim whose dk/dv columns a block owns. Both halves of a key tile
+// compute the same Sᵀ and dPᵀ over all 256 dims (so those two products
+// run twice), and each sums its own 128 columns of dV += Pᵀ·dO and
+// dK += dSᵀ·Q over the whole group, as at D = 128: the sum over the group
+// and its order are those of the unsplit kernel, and no column is added
+// by two blocks. Q, dO, lse and delta tiles stream through a 2-stage
 // ring in shared memory, loaded with cp.async, so the next tile's loads
 // overlap this tile's products. Per tile a warp computes the transposed
 // scores with the key dimension as M (k and v fragments by ldmatrix, q and
@@ -90,8 +98,10 @@
 // 64 query rows of one q head (warp w owns rows 16w..16w+15) and keeps
 // their q and do fragments in registers for the whole loop over the key
 // tiles of its kv head that the causal limit and the window admit (64 keys
-// a tile at D = 64, 32 at D = 128, so that the float32 S, dP and dq
-// accumulators fit the register file). K/V tiles stream through a 3-stage
+// a tile at D = 64, 32 at D = 128 and 256, so that the float32 S, dP and
+// dq accumulators fit the register file). At D = 256 dq alone takes 128
+// registers a thread and the q and do fragments would take 128 more, so
+// each k-step of S and dP reads them again from the tiles with ldmatrix. K/V tiles stream through a 3-stage
 // cp.async ring. Per tile a warp computes S and dP with the query dimension
 // as M (k and v as B operands by ldmatrix), then P = exp2(S·scale·log2e -
 // lse·log2e) and dS = P∘(dP - delta)·scale in the accumulator fragments
@@ -106,19 +116,22 @@
 // (67 TFLOP/s peak) from operands in shared memory, so in practice they
 // are bound by the FMA rate and shared-memory bandwidth, well above the
 // tensor-core bound. No measured path runs float32 attention; the float32
-// checks run through these. Design: 256 threads a block, 64×64 tiles,
-// operands converted to float32 in shared memory with row pitch D+4
+// checks run through these. Design: 256 threads a block, 64×64 tiles
+// (32×32 at D = 256: four 64-row tiles of pitch 260 floats and the score
+// tiles would need ~300 KB of shared memory, over the 227 KB a block may
+// use), operands converted to float32 in shared memory with row pitch D+4
 // (16-byte aligned rows, conflict-free float4 reads across a quarter
 // warp), as in flash_attention_fwd.cu. Thread (ty, tx) holds rows ty+16i
-// and columns tx+16j (i, j < 4) of a 64×64 score tile and output columns
+// and columns tx+16j (i, j < 4; < 2 at D = 256) of a score tile and output columns
 // tx+16n (n < D/16); p or ds goes through shared memory for the second
 // product.
-// - dq: grid (ceil(Sq/64), B·Hq); a block owns 64 query rows of one q
-//   head and loops over the key tiles of its kv head that the causal
-//   limit and the window admit (tiles wholly outside are never loaded),
+// - dq: grid (ceil(Sq/N), B·Hq) with N = 64 (32 at D = 256); a block
+//   owns N query rows of one q head and loops over the key tiles of its
+//   kv head that the causal limit and the window admit (tiles wholly
+//   outside are never loaded),
 //   heaviest query tiles first under causal masking. dq stays in float32
 //   registers for the whole loop and is written once.
-// - dk/dv: grid (ceil(Sk/64), B·Hkv); a block owns 64 keys of one kv
+// - dk/dv: grid (ceil(Sk/N), B·Hkv); a block owns N keys of one kv
 //   head and loops over the group's q heads and, for each, the query
 //   tiles that can see its keys, heaviest key tiles first under causal
 //   masking. dk and dv stay in float32 registers and are written once in
@@ -132,33 +145,40 @@
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per tile
-constexpr int BK = 64;         // keys per tile
 constexpr int THREADS = 256;
-constexpr int PT = 64 + 4;     // pitch of a 64×64 score tile's rows (floats)
 
+// The float32 kernels' tiles: N query rows and N keys (N = 16·R; thread
+// (ty, tx) holds rows ty+16i and columns tx+16j, i, j < R, of an N×N score
+// tile). N is 64, or 32 at D = 256, where four 64-row tiles of pitch 260
+// would pass the 227 KB of shared memory a block may use.
 template <int D>
-struct Pitch {
+struct Tile {
+  static constexpr int R = D == 256 ? 2 : 4;
+  static constexpr int N = 16 * R;
+  static constexpr int PT = N + 4;              // pitch of a score tile's rows
   static constexpr int P = D + 4;               // pitch of q/k/v/do rows
 };
 
 // dq kernel's shared memory: q, do, k, v tiles and the ds tile.
 template <int D>
 struct SmemDq {
-  static constexpr int P = Pitch<D>::P;
+  static constexpr int P = Tile<D>::P;
+  static constexpr int BQ = Tile<D>::N, BK = Tile<D>::N, PT = Tile<D>::PT;
   static constexpr int q = 0;
   static constexpr int dO = q + BQ * P;
   static constexpr int k = dO + BQ * P;
   static constexpr int v = k + BK * P;
   static constexpr int ds = v + BK * P;
   static constexpr size_t bytes = (size_t)(ds + BQ * PT) * sizeof(float);
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
 };
 
 // dk/dv kernel's shared memory: k, v, q, do tiles, the transposed p and ds
 // tiles, and the q tile's lse and delta.
 template <int D>
 struct SmemDkv {
-  static constexpr int P = Pitch<D>::P;
+  static constexpr int P = Tile<D>::P;
+  static constexpr int BQ = Tile<D>::N, BK = Tile<D>::N, PT = Tile<D>::PT;
   static constexpr int k = 0;
   static constexpr int v = k + BK * P;
   static constexpr int q = v + BK * P;
@@ -168,6 +188,7 @@ struct SmemDkv {
   static constexpr int lse = dst + BK * PT;
   static constexpr int delta = lse + BQ;
   static constexpr size_t bytes = (size_t)(delta + BQ) * sizeof(float);
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
 };
 
 __device__ __forceinline__ float4 load4(const float* src) {
@@ -183,14 +204,14 @@ __device__ __forceinline__ float fma4(float4 a, float4 b, float c) {
   return fmaf(a.w, b.w, c);
 }
 
-// Rows [row0, row0 + 64) of a row-major (n_rows, D) matrix into shared
+// Rows [row0, row0 + N) of a row-major (n_rows, D) matrix into shared
 // memory as float32 with pitch D+4; rows at or past n_rows are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
                                           int n_rows) {
-  constexpr int P = Pitch<D>::P;
+  constexpr int P = Tile<D>::P;
   constexpr int V4 = D / 4;
-  for (int c = threadIdx.x; c < 64 * V4; c += THREADS) {
+  for (int c = threadIdx.x; c < Tile<D>::N * V4; c += THREADS) {
     const int r = c / V4;
     const int d = (c % V4) * 4;
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -199,44 +220,49 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int row0,
   }
 }
 
-// out[i][j] = A[ty+16i] · B[tx+16j] over D, for two 64-row tiles in
+// out[i][j] = A[ty+16i] · B[tx+16j] over D, for two N-row tiles in
 // shared memory with pitch D+4.
 template <int D>
-__device__ __forceinline__ void tile_dot(float out[4][4], const float* A,
-                                         const float* Bm, int ty, int tx) {
-  constexpr int P = Pitch<D>::P;
+__device__ __forceinline__ void tile_dot(float out[Tile<D>::R][Tile<D>::R],
+                                         const float* A, const float* Bm,
+                                         int ty, int tx) {
+  constexpr int P = Tile<D>::P;
+  constexpr int R = Tile<D>::R;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.0f;
+    for (int j = 0; j < R; ++j) out[i][j] = 0.0f;
 #pragma unroll 4
   for (int d = 0; d < D; d += 4) {
-    float4 a[4], b[4];
+    float4 a[R], b[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
       a[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * P + d]);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < R; ++j)
       b[j] = *reinterpret_cast<const float4*>(&Bm[(tx + 16 * j) * P + d]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] = fma4(a[i], b[j], out[i][j]);
+      for (int j = 0; j < R; ++j) out[i][j] = fma4(a[i], b[j], out[i][j]);
   }
 }
 
-// acc[i][n] += Σ_kk S[ty+16i][kk] · M[kk][tx+16n]: a 64×64 score tile (pitch
-// PT) times a 64×D operand tile (pitch D+4), both in shared memory.
+// acc[i][n] += Σ_kk S[ty+16i][kk] · M[kk][tx+16n]: an N×N score tile (pitch
+// PT) times an N×D operand tile (pitch D+4), both in shared memory.
 template <int D>
-__device__ __forceinline__ void tile_mma(float acc[4][D / 16], const float* S,
-                                         const float* M, int ty, int tx) {
-  constexpr int P = Pitch<D>::P;
+__device__ __forceinline__ void tile_mma(float acc[Tile<D>::R][D / 16],
+                                         const float* S, const float* M,
+                                         int ty, int tx) {
+  constexpr int P = Tile<D>::P;
+  constexpr int R = Tile<D>::R;
+  constexpr int PT = Tile<D>::PT;
   constexpr int NC = D / 16;
 #pragma unroll 2
-  for (int kk = 0; kk < 64; kk += 4) {
-    float4 sr[4];
+  for (int kk = 0; kk < Tile<D>::N; kk += 4) {
+    float4 sr[R];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < R; ++i)
       sr[i] = *reinterpret_cast<const float4*>(&S[(ty + 16 * i) * PT + kk]);
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
@@ -245,7 +271,7 @@ __device__ __forceinline__ void tile_mma(float acc[4][D / 16], const float* S,
           make_float4(M[(kk + 0) * P + col], M[(kk + 1) * P + col],
                       M[(kk + 2) * P + col], M[(kk + 3) * P + col]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][n] = fma4(sr[i], mc, acc[i][n]);
+      for (int i = 0; i < R; ++i) acc[i][n] = fma4(sr[i], mc, acc[i][n]);
     }
   }
 }
@@ -262,6 +288,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float scale) {
   using L = SmemDq<D>;
   constexpr int NC = D / 16;
+  constexpr int R = Tile<D>::R, BQ = L::BQ, BK = L::BK, PT = L::PT;
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   float* Qs = smem + L::q;
@@ -283,9 +310,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile<T, D>(Qs, q + (size_t)bh * Sq * D, q0, Sq);
   load_tile<T, D>(DOs, dout + (size_t)bh * Sq * D, q0, Sq);
-  float lse_i[4], delta_i[4];
+  float lse_i[R], delta_i[R];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = q0 + ty + 16 * i;
     lse_i[i] = r < Sq ? lse[(size_t)bh * Sq + r] : 0.0f;
     delta_i[i] = r < Sq ? delta[(size_t)bh * Sq + r] : 0.0f;
@@ -298,9 +325,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kt_begin = k_lo / BK;
   const int kt_end = (k_hi + BK - 1) / BK;
 
-  float acc[4][NC];
+  float acc[R][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int n = 0; n < NC; ++n) acc[i][n] = 0.0f;
 
@@ -311,14 +338,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     load_tile<T, D>(Vs, vb, k0, Sk);
     __syncthreads();
 
-    float s[4][4], dp[4][4];
+    float s[R][R], dp[R][R];
     tile_dot<D>(s, Qs, Ks, ty, tx);             // rows ty+16i, keys tx+16j
     tile_dot<D>(dp, DOs, Vs, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       const int r = q0 + ty + 16 * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int c = k0 + tx + 16 * j;
         const float p = visible(r, c, Sq, Sk, causal, window)
                             ? expf(s[i][j] * scale - lse_i[i])
@@ -332,7 +359,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
     T* row = dq + ((size_t)bh * Sq + r) * D;
@@ -351,6 +378,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      int causal, int window, float scale) {
   using L = SmemDkv<D>;
   constexpr int NC = D / 16;
+  constexpr int R = Tile<D>::R, BQ = L::BQ, BK = L::BK, PT = L::PT;
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   float* Ks = smem + L::k;
@@ -381,9 +409,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qt_begin = q_lo / BQ;
   const int qt_end = q_lo < q_hi ? (q_hi + BQ - 1) / BQ : qt_begin;
 
-  float dk_acc[4][NC], dv_acc[4][NC];
+  float dk_acc[R][NC], dv_acc[R][NC];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int n = 0; n < NC; ++n) {
       dk_acc[i][n] = 0.0f;
@@ -407,17 +435,17 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       __syncthreads();
 
       // transposed tiles: keys ty+16i, queries tx+16j
-      float st[4][4], dpt[4][4];
+      float st[R][R], dpt[R][R];
       tile_dot<D>(st, Ks, Qs, ty, tx);
       tile_dot<D>(dpt, Vs, DOs, ty, tx);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < R; ++j) {
         const int qc = tx + 16 * j;
         const int r = q0 + qc;
         const float lse_r = LSEs[qc];
         const float del_r = DELs[qc];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < R; ++i) {
           const int c = k0 + ty + 16 * i;
           const float p = visible(r, c, Sq, Sk, causal, window)
                               ? expf(st[i][j] * scale - lse_r)
@@ -433,7 +461,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < R; ++i) {
     const int c = k0 + ty + 16 * i;
     if (c >= Sk) continue;
     T* dkr = dk + kv_base + (size_t)c * D;
@@ -457,6 +485,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  constexpr int BQ = SmemDq<D>::BQ;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)(B * Hq));
   flash_bwd_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
@@ -476,6 +505,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
       flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return err;
+  constexpr int BK = SmemDkv<D>::BK;
   const dim3 grid((unsigned)((Sk + BK - 1) / BK), (unsigned)(B * Hkv));
   flash_bwd_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
@@ -502,12 +532,16 @@ template <int D>
 struct Smem {
   static constexpr int P = D + 8;
   static constexpr int BQ = D == 64 ? 64 : 32;  // query rows per tile
+  // dk/dv columns a block owns: all D, or half at D = 256, where dk and dv
+  // in registers would be 256 float32 a thread (blockIdx.z picks the half)
+  static constexpr int DH = D == 256 ? D / 2 : D;
   static constexpr int k = 0;
   static constexpr int v = BKV * P;
   static constexpr int ring = 2 * BKV * P;
   static constexpr size_t stat =
       (size_t)(ring + STAGES * 2 * BQ * P) * sizeof(bf16);
   static constexpr size_t bytes = stat + STAGES * 2 * BQ * sizeof(float);
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
 };
 
 template <int D>
@@ -524,7 +558,8 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int BQ = L::BQ;
   constexpr int KD = D / 16;                    // k-steps of the score products
   constexpr int NS = BQ / 8;                    // n-tiles of Sᵀ, dPᵀ
-  constexpr int NO = D / 8;                     // n-tiles of dk, dv
+  constexpr int DH = L::DH;
+  constexpr int NO = DH / 8;                    // n-tiles of dk, dv
   extern __shared__ float4 smem_f4[];
   bf16* smem = reinterpret_cast<bf16*>(smem_f4);
   bf16* Ks = smem + L::k;
@@ -541,6 +576,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kvh = bkv % Hkv;
   const int group = Hq / Hkv;
   const int k0 = blockIdx.y * BKV;              // heaviest (earliest) first
+  const int col0 = blockIdx.z * DH;             // the block's dk/dv columns
   const size_t kv_base = (size_t)bkv * Sk * D;
   const int c0 = k0 + w0 + g;                   // keys c0 and c0 + 8
 
@@ -645,17 +681,17 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dpt[j][e] = p * (dpt[j][e] - DELs[col]) * scale;
       }
 
-    // dV += Pᵀ·dO and dK += dSᵀ·Q, each as hi + lo: k-step kq is queries
-    // q0 + 16kq .. + 15
+    // dV += Pᵀ·dO and dK += dSᵀ·Q over the block's columns, each as
+    // hi + lo: k-step kq is queries q0 + 16kq .. + 15
 #pragma unroll
     for (int kq = 0; kq < BQ / 16; ++kq) {
       uint32_t phi[4], plo[4], dhi[4], dlo[4];
       fm::split_a(st[2 * kq], st[2 * kq + 1], phi, plo);
       fm::split_a(dpt[2 * kq], dpt[2 * kq + 1], dhi, dlo);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DH / 16; ++dp) {
         const int off = (kq * 16 + (lane & 7) + (((lane >> 3) & 1) << 3)) * P +
-                        dp * 16 + ((lane >> 4) << 3);
+                        col0 + dp * 16 + ((lane >> 4) << 3);
         uint32_t bo[4], bq[4];
         fm::ldsm_x4_t(bo, DOs + off);
         fm::ldsm_x4_t(bq, Qs + off);
@@ -679,7 +715,7 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncwarp();
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
-    const int c = 8 * n + 2 * t;
+    const int c = col0 + 8 * n + 2 * t;
     *reinterpret_cast<__nv_bfloat162*>(dKs + g * P + c) =
         __floats2bfloat162_rn(dka[n][0], dka[n][1]);
     *reinterpret_cast<__nv_bfloat162*>(dKs + (g + 8) * P + c) =
@@ -691,9 +727,9 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncwarp();
 #pragma unroll
-  for (int idx = lane; idx < 16 * (D / 8); idx += 32) {
-    const int r = idx / (D / 8);
-    const int c = (idx % (D / 8)) * 8;
+  for (int idx = lane; idx < 16 * (DH / 8); idx += 32) {
+    const int r = idx / (DH / 8);
+    const int c = col0 + (idx % (DH / 8)) * 8;
     if (k0 + w0 + r >= Sk) continue;
     const size_t at = kv_base + (size_t)(k0 + w0 + r) * D + c;
     *reinterpret_cast<uint4*>(dk + at) =
@@ -731,7 +767,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   const size_t smem = Smem<D>::bytes;
   cudaError_t err = allow_smem(flash_bwd_dkv_tc_kernel<D>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)(B * Hkv), (unsigned)((Sk + BKV - 1) / BKV));
+  const dim3 grid((unsigned)(B * Hkv), (unsigned)((Sk + BKV - 1) / BKV),
+                  (unsigned)(D / Smem<D>::DH));
   flash_bwd_dkv_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)dout,
       (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv, Hq, Hkv,
@@ -750,11 +787,16 @@ struct SmemDq {
   static constexpr int P = D + 8;
   static constexpr int BK = D == 64 ? 64 : 32;  // keys per tile
   static constexpr int STAGES = 3;
+  // q's and do's fragments in registers for the whole loop; at D = 256
+  // they would be 128 registers a thread beside dq's 128, so each k-step
+  // reads them again from the tiles
+  static constexpr bool QREG = D <= 128;
   static constexpr int q = 0;
   static constexpr int dO = BQD * P;
   static constexpr int kv = 2 * BQD * P;
   static constexpr size_t bytes =
       (size_t)(kv + STAGES * 2 * BK * P) * sizeof(bf16);
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
 };
 
 template <int D>
@@ -825,7 +867,7 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float dl0 = r0 < Sq ? drow[r0] : 0.f;
   const float dl1 = r0 + 8 < Sq ? drow[r0 + 8] : 0.f;
   const float sl2 = scale * fm::LOG2E;          // scores in log2 units
-  uint32_t qf[KD][4], df[KD][4];
+  uint32_t qf[L::QREG ? KD : 1][4], df[L::QREG ? KD : 1][4];
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -837,12 +879,14 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                            // ... for every thread; tile i-1 consumed
     if (i + ST - 1 < n_tiles) load_kv(i + ST - 1);
     fm::cp_async_commit();
-    if (i == 0) {
+    if constexpr (L::QREG) {
+      if (i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const int off = (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8;
-        fm::ldsm_x4(qf[kk], Qs + off);
-        fm::ldsm_x4(df[kk], DOs + off);
+        for (int kk = 0; kk < KD; ++kk) {
+          const int off = (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8;
+          fm::ldsm_x4(qf[kk], Qs + off);
+          fm::ldsm_x4(df[kk], DOs + off);
+        }
       }
     }
     const bf16* Ks = smem + L::kv + (i % ST) * 2 * BK * P;
@@ -863,7 +907,19 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dp[j][e] = 0.f;
       }
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qa[4], da[4];
+      if constexpr (L::QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          qa[e] = qf[kk][e];
+          da[e] = df[kk][e];
+        }
+      } else {
+        const int off = (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8;
+        fm::ldsm_x4(qa, Qs + off);
+        fm::ldsm_x4(da, DOs + off);
+      }
 #pragma unroll
       for (int jp = 0; jp < NS / 2; ++jp) {
         const int off = (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
@@ -871,11 +927,12 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         uint32_t kf[4], vf[4];
         fm::ldsm_x4(kf, Ks + off);
         fm::ldsm_x4(vf, Vs + off);
-        fm::mma(s[2 * jp], qf[kk], kf[0], kf[1]);
-        fm::mma(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
-        fm::mma(dp[2 * jp], df[kk], vf[0], vf[1]);
-        fm::mma(dp[2 * jp + 1], df[kk], vf[2], vf[3]);
+        fm::mma(s[2 * jp], qa, kf[0], kf[1]);
+        fm::mma(s[2 * jp + 1], qa, kf[2], kf[3]);
+        fm::mma(dp[2 * jp], da, vf[0], vf[1]);
+        fm::mma(dp[2 * jp + 1], da, vf[2], vf[3]);
       }
+    }
 
     // P = exp(S - lse) on visible pairs (0 by selection elsewhere: an
     // empty row's lse is NEG_INF), dS = P∘(dP - delta)·scale, into s
@@ -961,7 +1018,7 @@ extern "C" {
 // Shapes: q, do (B, Hq, Sq, D); k, v (B, Hkv, Sk, D), contiguous, one type,
 // 16-byte aligned, Hq % Hkv == 0, B·Hq <= 65535; lse and delta (B, Hq, Sq)
 // float32; dq like q; dk, dv like k. dtype 0 = float32, 1 = bfloat16; D is
-// 64 or 128; window <= 0 means no window.
+// 64, 128 or 256; window <= 0 means no window.
 int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
                                   const void* dout, const void* lse,
                                   const void* delta, void* dq, int B, int Hq,
@@ -977,8 +1034,10 @@ int flash_attention_bwd_dq_launch(const void* q, const void* k, const void* v,
   Launch fn = nullptr;
   if (dtype == 0 && D == 64) fn = launch_dq<float, 64>;
   if (dtype == 0 && D == 128) fn = launch_dq<float, 128>;
+  if (dtype == 0 && D == 256) fn = launch_dq<float, 256>;
   if (dtype == 1 && D == 64) fn = tc::launch_dq<64>;
   if (dtype == 1 && D == 128) fn = tc::launch_dq<128>;
+  if (dtype == 1 && D == 256) fn = tc::launch_dq<256>;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return (int)fn(q, k, v, dout, lse, delta, dq, B, Hq, Hkv, Sq, Sk, causal,
                  window, scale, (cudaStream_t)stream);
@@ -1000,8 +1059,10 @@ int flash_attention_bwd_dkv_launch(const void* q, const void* k,
   Launch fn = nullptr;
   if (dtype == 0 && D == 64) fn = launch_dkv<float, 64>;
   if (dtype == 0 && D == 128) fn = launch_dkv<float, 128>;
+  if (dtype == 0 && D == 256) fn = launch_dkv<float, 256>;
   if (dtype == 1 && D == 64) fn = tc::launch_dkv<64>;
   if (dtype == 1 && D == 128) fn = tc::launch_dkv<128>;
+  if (dtype == 1 && D == 256) fn = tc::launch_dkv<256>;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return (int)fn(q, k, v, dout, lse, delta, dk, dv, B, Hq, Hkv, Sq, Sk,
                  causal, window, scale, (cudaStream_t)stream);
@@ -1017,6 +1078,10 @@ int flash_attention_bwd_dq_info(int D, int* smem_bytes, int* blocks_per_sm) {
     return (int)tc::occupancy(tc::flash_bwd_dq_tc_kernel<128>,
                               tc::SmemDq<128>::bytes, smem_bytes,
                               blocks_per_sm);
+  if (D == 256)
+    return (int)tc::occupancy(tc::flash_bwd_dq_tc_kernel<256>,
+                              tc::SmemDq<256>::bytes, smem_bytes,
+                              blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1029,6 +1094,10 @@ int flash_attention_bwd_dkv_info(int D, int* smem_bytes, int* blocks_per_sm) {
   if (D == 128)
     return (int)tc::occupancy(tc::flash_bwd_dkv_tc_kernel<128>,
                               tc::Smem<128>::bytes, smem_bytes,
+                              blocks_per_sm);
+  if (D == 256)
+    return (int)tc::occupancy(tc::flash_bwd_dkv_tc_kernel<256>,
+                              tc::Smem<256>::bytes, smem_bytes,
                               blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }

@@ -50,8 +50,8 @@
 // diagonal-heavy tiles are scheduled before any light one). A block of 8
 // warps owns 128 query rows of one (batch, q head); warp w owns rows
 // 16w..16w+15 and keeps their q fragments in registers for the whole key
-// loop. 64-key K/V tiles stream through a ring of 3 stages (D = 64; 2 at
-// D = 128) in shared memory, loaded with cp.async, so the next tiles' loads
+// loop (at D ≤ 128; see D = 256 below). 64-key K/V tiles stream through a
+// ring of 3 stages (D = 64; 2 at D = 128 and 256) in shared memory, loaded with cp.async, so the next tiles' loads
 // overlap this tile's products. Per tile a warp computes S = q·kᵀ (16 × 64,
 // mma.sync m16n8k16, K read with ldmatrix), masks it only where the tile
 // straddles the causal diagonal, the window or Sk, updates the online
@@ -61,6 +61,11 @@
 // trip for P. o is written once through shared memory in 16-byte stores.
 // The ring uses cp.async and wait_group, not TMA and mbarriers, and the
 // products are mma.sync, not wgmma: wgmma is the next step.
+// At D = 256 (gemma-2b) a warp's o accumulators alone are 128 float32
+// registers a thread, so q's fragments are not kept for the key loop (64
+// more registers would pass the 255 a thread allows): each k-step of
+// q·kᵀ reads them again from the q tile with ldmatrix. The ring then holds
+// 2 stages, (128 + 2·2·64)·264·2 B = 202,752 B, one block an SM.
 //
 // float32: CUDA cores (flash_fwd_kernel). Every product is a float32 FMA
 // (67 TFLOP/s peak, so at least ~2 ms at the prefill's shapes), operands in
@@ -77,6 +82,7 @@
 // (n < D/16); the 16 threads that share a row sit in one half warp, so the
 // row max and sum are shuffles. The running (m, l, acc) stay in registers
 // for the whole key loop; P goes through shared memory for the P·V product.
+// Shared memory is (3·64·(D+4) + 64·68)·4 B: 217,088 B at D = 256.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +106,7 @@ struct Smem {
   static constexpr int v = k + BK * P;
   static constexpr int p = v + BK * P;
   static constexpr size_t bytes = (size_t)(p + BQ * PK) * sizeof(float);
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
 };
 
 __device__ __forceinline__ float4 load4(const float* src) {
@@ -305,10 +312,12 @@ struct Smem {
   static constexpr int P = D + 8;
   static constexpr int STAGES = D == 64 ? 3 : 2;
   static constexpr int MIN_BLOCKS = D == 64 ? 2 : 1;   // blocks an SM
+  static constexpr bool QREG = D <= 128;        // q's fragments in registers
   static constexpr int q = 0;
   static constexpr int kv = BQ * P;
   static constexpr size_t bytes =
       (size_t)(kv + STAGES * 2 * BK * P) * sizeof(bf16);
+  static_assert(bytes <= 232448, "over the 227 KB a block may use");
 };
 
 template <int D>
@@ -362,7 +371,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int r0 = q0 + w0 + g;                   // rows r0 and r0 + 8
   const float sl2 = scale * fm::LOG2E;          // scores in log2 units
-  uint32_t qf[KD][4];
+  uint32_t qf[L::QREG ? KD : 1][4];
   float acc[NO][4], lacc[4] = {0.f, 0.f, 0.f, 0.f};
   float m0 = fm::NEG_INF, m1 = fm::NEG_INF;
 #pragma unroll
@@ -375,10 +384,12 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();                            // ... for every thread; tile i-1 consumed
     if (i + ST - 1 < n_tiles) load_kv(i + ST - 1);
     fm::cp_async_commit();
-    if (i == 0) {
+    if constexpr (L::QREG) {
+      if (i == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk)
-        fm::ldsm_x4(qf[kk], Qs + (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+        for (int kk = 0; kk < KD; ++kk)
+          fm::ldsm_x4(qf[kk], Qs + (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+      }
     }
     const bf16* Ks = smem + L::kv + (i % ST) * 2 * BK * P;
     const bf16* Vs = Ks + BK * P;
@@ -395,15 +406,23 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < KD; ++kk)
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qk[4];
+      if constexpr (L::QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qk[e] = qf[kk][e];
+      } else {
+        fm::ldsm_x4(qk, Qs + (w0 + (lane & 15)) * P + kk * 16 + (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int jp = 0; jp < NS / 2; ++jp) {
         uint32_t kf[4];
         fm::ldsm_x4(kf, Ks + (jp * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
                             kk * 16 + ((lane >> 3) & 1) * 8);
-        fm::mma(s[2 * jp], qf[kk], kf[0], kf[1]);
-        fm::mma(s[2 * jp + 1], qf[kk], kf[2], kf[3]);
+        fm::mma(s[2 * jp], qk, kf[0], kf[1]);
+        fm::mma(s[2 * jp + 1], qk, kf[2], kf[3]);
       }
+    }
 
     // mask (only a tile that straddles the diagonal, the window or Sk),
     // online softmax in log2 units
@@ -549,7 +568,7 @@ extern "C" {
 // after the launch (cudaSuccess and no launch when Sq or B·Hq is 0).
 // Shapes: q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D), contiguous and 16-byte
 // aligned, Hq % Hkv == 0, B·Hq <= 65535; o like q; lse (B, Hq, Sq) float32.
-// dtype 0 = float32, 1 = bfloat16 (o has q's type); D is 64 or 128;
+// dtype 0 = float32, 1 = bfloat16 (o has q's type); D is 64, 128 or 256;
 // window <= 0 means no window.
 int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
                                void* o, void* lse, int B, int Hq, int Hkv,
@@ -563,8 +582,10 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
   Launch fn = nullptr;
   if (dtype == 0 && D == 64) fn = launch<float, 64>;
   if (dtype == 0 && D == 128) fn = launch<float, 128>;
+  if (dtype == 0 && D == 256) fn = launch<float, 256>;
   if (dtype == 1 && D == 64) fn = tc::launch<64>;
   if (dtype == 1 && D == 128) fn = tc::launch<128>;
+  if (dtype == 1 && D == 256) fn = tc::launch<256>;
   if (fn == nullptr) return (int)cudaErrorInvalidValue;
   return (int)fn(q, k, v, o, lse, B, Hq, Hkv, Sq, Sk, causal, window, scale,
                  (cudaStream_t)stream);
@@ -575,6 +596,7 @@ int flash_attention_fwd_launch(const void* q, const void* k, const void* v,
 int flash_attention_fwd_info(int D, int* smem_bytes, int* blocks_per_sm) {
   if (D == 64) return (int)tc::info<64>(smem_bytes, blocks_per_sm);
   if (D == 128) return (int)tc::info<128>(smem_bytes, blocks_per_sm);
+  if (D == 256) return (int)tc::info<256>(smem_bytes, blocks_per_sm);
   return (int)cudaErrorInvalidValue;
 }
 

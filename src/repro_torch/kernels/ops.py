@@ -461,7 +461,7 @@ copyscore_store.launches = 0
 # ---------------------------------------------------------------------------
 
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_FLASH_HEAD_DIMS = (64, 128)
+_FLASH_HEAD_DIMS = (64, 128, 256)
 _MAX_GRID_Y = 65535
 
 
@@ -544,7 +544,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Attention forward: (o in q's dtype, lse (B, Hq, Sq) float32).
 
     q (B, Hq, Sq, D); k, v (B, Hkv, Sk, D), contiguous, one dtype (float32 or
-    bfloat16), D ∈ {64, 128}, Hq a multiple of Hkv (kv head = q head //
+    bfloat16), D ∈ {64, 128, 256}, Hq a multiple of Hkv (kv head = q head //
     group). Key j is visible from query i iff (not causal or j ≤ i) and
     (window is None or i − j < window); any Sq and Sk. A CPU tensor takes
     ``ref.flash_attention_fwd_torch``; a CUDA tensor launches the kernel.

@@ -11,7 +11,8 @@
       steps the prompts and the new tokens through the cached decode path.
       ``--arch`` is any of the registry's (``repro_torch.configs.ARCH_IDS``):
       ``llama3.2-1b``, ``qwen2.5-3b`` and ``starcoder2-15b`` (dense, QKV
-      bias), ``phi3.5-moe-42b-a6.6b`` and ``grok-1-314b`` (mixture of
+      bias), ``gemma-2b`` (dense, one kv head, head_dim 256, GeGLU),
+      ``phi3.5-moe-42b-a6.6b`` and ``grok-1-314b`` (mixture of
       experts), ``falcon-mamba-7b`` (Mamba layers only), ``hymba-1.5b``
       (attention and Mamba heads in every layer, a sliding window on 29 of
       32), ``musicgen-large`` and ``llama-3.2-vision-11b`` (cross
@@ -89,7 +90,7 @@ def serve_lm(args):
 
     cfg = get_config(args.arch)
     if args.reduced:
-        # 4 heads of 64: the kernel takes head_dim 64 or 128
+        # 4 heads of 64: the kernel takes head_dim 64, 128 or 256
         cfg = cfg.reduced(d_model=256, d_ff=512)
     model = Model(cfg, device=args.device)
     params = model.init(0)

@@ -17,9 +17,16 @@ SSM block kinds through the chunk-checkpointed scan
 (``models/mamba.py:SelectiveScan``); falcon-mamba-7b's 64 layers with
 AdamW need ~116 GB of parameters and optimizer state, more than one
 80 GB card holds, until a factored optimizer is ported (ROADMAP A.7).
-The ``moe`` and ``cross`` kinds (phi3.5-moe, grok-1, musicgen-large,
-llama-3.2-vision-11b) serve but do not train yet: their arch raises
-``NotImplementedError`` before anything is built.
+``--arch gemma-2b`` (head_dim 256) and ``--arch phi3.5-moe-42b-a6.6b``
+(the ``moe`` kind) train like the others. Two archs raise before anything
+is built: grok-1-314b, whose config names the ``adafactor`` optimizer that
+the port lacks (``NotImplementedError``; like JAX's CLI, this one has no
+flag that picks another), and the conditioned archs (musicgen-large,
+llama-3.2-vision-11b: ``ValueError``), whose ``cond`` comes from a
+conditioning frontend (an EnCodec/T5 or vision encoder) that neither
+package has: JAX's CLI feeds no ``cond`` either and fails inside its
+cross attention (ROADMAP C21). A ``cross`` model trains through
+``runtime.train`` with batches that carry ``cond``.
 """
 from __future__ import annotations
 
@@ -47,14 +54,20 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.data.tokens import Prefetcher, batches, synthetic_corpus
     from repro_torch.models import Model
-    from repro_torch.models.transformer import check_kind
+    from repro_torch.optim import get_optimizer
     from repro_torch.runtime.train_loop import train
 
     cfg = get_config(args.arch)
-    for kind, _ in cfg.plan:
-        check_kind(kind, training=True)
+    if cfg.cond_len:
+        raise ValueError(
+            f"{cfg.name} attends over a conditioning input cond (B, "
+            f"{cfg.cond_len}, {cfg.cond_dim}) that a conditioning frontend "
+            f"(an EnCodec/T5 or vision encoder) would make; neither package "
+            f"has one, and the token corpus carries none (ROADMAP C21): "
+            f"train it through runtime.train with batches that carry cond")
+    get_optimizer(cfg.optimizer)
     if args.reduced:
-        # 4 heads of 64: the kernels take head_dim 64 or 128
+        # 4 heads of 64: the kernels take head_dim 64, 128 or 256
         cfg = cfg.reduced(d_model=256, d_ff=512)
     model = Model(cfg, device=args.device)
 

@@ -10,13 +10,16 @@ hand the same numbers to both packages. They are a plain tree passed to
 each call, as in JAX; the ``Model`` module holds the configuration and
 the device. ``loss`` is differentiable: autograd through
 the flash-attention Function (``kernels.ops.FlashAttention``) on the
-kernel path and the chunk-checkpointed scan (``mamba.SelectiveScan``) of
-the SSM kinds, and with ``cfg.remat`` through per-layer checkpoints; it
-raises for the ``moe`` and ``cross`` kinds, which serve but do not train
-yet. A configuration with ``cond_len`` (the ``cross`` kind's
-conditioning, precomputed frame or patch embeddings (B, cond_len,
-cond_dim)) takes ``cond`` in ``forward``, ``prefill``, ``decode_step`` and
-``greedy_decode``, cast to the compute dtype.
+kernel path (the cross attention's too, whose k and v are projected from
+``cond``), the chunk-checkpointed scan (``mamba.SelectiveScan``) of the
+SSM kinds and the expert loop of the ``moe`` kind (its gathers and
+``index_add_``; routing recomputed under ``remat`` from the same input
+picks the same experts), and with ``cfg.remat`` through per-layer
+checkpoints: every block kind trains. A configuration with ``cond_len``
+(the ``cross`` kind's conditioning, precomputed frame or patch embeddings
+(B, cond_len, cond_dim)) takes ``cond`` in ``forward``, ``prefill``,
+``decode_step``, ``greedy_decode`` and the batch of ``loss``, cast to the
+compute dtype.
 """
 from __future__ import annotations
 
@@ -114,10 +117,9 @@ class Model(nn.Module):
         """batch: {tokens (B, S), labels (B, S), cond?} → mean token
         cross-entropy (a float32 scalar) over the full float32 logits, as
         the JAX package's ``Model.loss`` computes it: logsumexp minus the
-        gold logit, averaged. Raises ``NotImplementedError`` for a plan
-        with a kind the port does not train yet (``moe``, ``cross``)."""
-        for kind, _ in self.cfg.plan:
-            check_kind(kind, training=True)
+        gold logit, averaged. Every block kind trains; a plan with
+        ``cross`` layers needs ``batch["cond"]`` (B, cond_len,
+        cond_dim)."""
         logits = self.forward(params, batch["tokens"], cond=batch.get("cond"))
         labels = self._tokens(batch["labels"])
         lse = torch.logsumexp(logits, dim=-1)

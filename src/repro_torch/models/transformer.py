@@ -7,10 +7,11 @@ loop over the stacked layer dimension. With ``cfg.remat`` each layer runs
 under ``torch.utils.checkpoint`` (the counterpart of the JAX package's
 ``jax.checkpoint``) whenever autograd records a graph: only the layer's
 input is kept, and the backward recomputes the layer's forward. The port
-serves every block kind of the JAX package (``dense``, ``moe``, ``cross``,
-``ssm``, ``hybrid_swa``, ``hybrid_full``) and trains all but ``moe`` and
-``cross`` (the scan's backward is ``mamba.SelectiveScan``); training those
-two raises ``NotImplementedError`` until their slice (ROADMAP A.7).
+serves and trains every block kind of the JAX package (``dense``,
+``moe``, ``cross``, ``ssm``, ``hybrid_swa``, ``hybrid_full``): the scan's
+backward is ``mamba.SelectiveScan``, the expert loop's and the cross
+attention's are autograd through its gathers and ``index_add_`` and
+through the flash-attention Function.
 """
 from __future__ import annotations
 
@@ -38,22 +39,16 @@ from repro_torch.models.mlp import init_mlp, mlp_forward
 from repro_torch.models.moe import init_moe, moe_forward
 
 PORTED_KINDS = ("dense", "moe", "cross", "ssm", "hybrid_swa", "hybrid_full")
-TRAINED_KINDS = ("dense", "ssm", "hybrid_swa", "hybrid_full")
 ATTN_KINDS = {"dense", "moe", "cross", "hybrid_swa", "hybrid_full"}
 SSM_KINDS = {"ssm", "hybrid_swa", "hybrid_full"}
 
 
-def check_kind(kind: str, training: bool = False) -> None:
-    """Raise for a block kind the port does not run, or, with ``training``,
-    does not train yet."""
+def check_kind(kind: str) -> None:
+    """Raise for a block kind the port does not run."""
     if kind not in PORTED_KINDS:
         raise NotImplementedError(
             f"block kind {kind!r} is not ported (ROADMAP A.7); the port "
             f"runs {PORTED_KINDS}")
-    if training and kind not in TRAINED_KINDS:
-        raise NotImplementedError(
-            f"training the {kind!r} block kind comes with the next slice "
-            f"(ROADMAP A.7); the port trains {TRAINED_KINDS}")
 
 
 def _window(kind: str, cfg: ModelConfig) -> Optional[int]:

@@ -9,5 +9,17 @@ from repro_torch.optim.schedule import clip_by_global_norm, warmup_cosine
 
 OPTIMIZERS = {"adamw": adamw}
 
+
+def get_optimizer(name: str):
+    """The optimizer factory of ``OPTIMIZERS`` named ``name``; a name of the
+    JAX package's that the port lacks (``adafactor``, grok-1-314b's) raises
+    ``NotImplementedError``."""
+    if name not in OPTIMIZERS:
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported (ROADMAP A.7: Adafactor comes "
+            f"with a later slice); the port has {sorted(OPTIMIZERS)}")
+    return OPTIMIZERS[name]
+
+
 __all__ = ["OPTIMIZERS", "Optimizer", "adamw", "clip_by_global_norm",
-           "warmup_cosine"]
+           "get_optimizer", "warmup_cosine"]

@@ -26,7 +26,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.models.common import tree_leaves, tree_unflatten
-from repro_torch.optim import OPTIMIZERS
+from repro_torch.optim import get_optimizer
 from repro_torch.optim.schedule import clip_by_global_norm, warmup_cosine
 
 
@@ -149,8 +149,12 @@ def train(
     """Run training with checkpoint/restart fault tolerance from parameters
     drawn by ``model.init(seed)``. Returns (final_state, history): one dict
     per completed step with its step, seconds (host clock, ending when the
-    step's metrics reach the host) and metrics."""
-    optimizer = OPTIMIZERS[optimizer_name or model.cfg.optimizer]()
+    step's metrics reach the host) and metrics. Batches of a model with
+    ``cross`` layers carry ``cond`` (B, cond_len, cond_dim), with a leading
+    micro-batch dimension under ``grad_accum`` as every leaf has. An
+    optimizer the port lacks (grok-1-314b's ``adafactor``) raises
+    ``NotImplementedError`` before anything is built."""
+    optimizer = get_optimizer(optimizer_name or model.cfg.optimizer)()
     lr_fn = warmup_cosine(peak_lr, warmup, steps)
     step_fn = make_train_step(model, optimizer, lr_fn, grad_accum=grad_accum)
     state = init_train_state(model, optimizer, seed)

@@ -402,12 +402,15 @@ def test_train_cli_trains_the_ssm_kinds(arch):
 
 
 def test_unported_kinds_still_raise():
-    """The train CLI refuses the kinds that serve but do not train yet
-    (``moe``, ``cross``) before it builds anything."""
-    for arch in ("phi3.5-moe-42b-a6.6b", "musicgen-large"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            train_main(["--arch", arch, "--reduced", "--device", "cpu",
-                        "--steps", "1"])
+    """The train CLI refuses, before it builds anything, what it cannot
+    train: grok-1's ``adafactor`` optimizer (not ported, ROADMAP A.7) and
+    a conditioned arch, whose cond no frontend makes (C21)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        train_main(["--arch", "grok-1-314b", "--reduced", "--device", "cpu",
+                    "--steps", "1"])
+    with pytest.raises(ValueError, match="conditioning frontend"):
+        train_main(["--arch", "musicgen-large", "--reduced", "--device", "cpu",
+                    "--steps", "1"])
 
 
 # ---------------------------------------------------------------------------
