@@ -18,10 +18,12 @@ plane with the engine's shard-owner fan-out, the LM serving path
 ``repro_torch.runtime.ServeLoop`` (Llama-3.2-1B, falcon-mamba-7b,
 hymba-1.5b, qwen2.5-3b, musicgen-large, phi3.5-moe and gemma-2b), and the
 LM training path ``repro_torch.runtime.train`` (Llama-3.2-1B, hymba-1.5b,
-falcon-mamba-7b, gemma-2b, musicgen-large and phi3.5-moe) — and
+falcon-mamba-7b with Adafactor, gemma-2b, musicgen-large and phi3.5-moe,
+and grok-1-314b through the train CLI) — and
 checks them phase by phase; any failure exits non-zero. Phases 18 and
-13–17 run right after phase 6, while the full pass's store is still in
-memory; then phases 19 and 20, then phases 7–12, then phases 21–24.
+13–16 run right after phase 6, while the full pass's store is still in
+memory; then phase 17 on a corpus of its own, phases 19 and 20, then
+phases 7–12, then phases 21–24.
 Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -37,7 +39,12 @@ Phases:
      at tiles 128 and 256, and at S=2048 under a 1 MiB cap on every
      incidence allocation and group slab, with kernel launches > 0; at
      S=2048 the scan's four grids at prefetch depths 0 and 2 equal bit for
-     bit, and decisions at depth 2 equal the exact INDEX; at S=512
+     bit, and decisions at depth 2 equal the exact INDEX; at S=2048
+     ``runtime.platform.autotune`` sweeps tiles (128, 256) at chunk group
+     1 with the wall seconds of a bucketed ``detect`` a point into a
+     temporary cache: every point decides like the exact INDEX, the cache
+     file is ``cuda-sm90.json`` and ``load_autotune`` reads the winner
+     back; at S=512
      ``bound``, ``bound+``, ``hybrid`` (with their ``BoundState``) and
      ``sampled`` (rate 0.1) on the card against the same calls with
      ``device="cpu"``: decisions, decided pairs, decision buckets, the
@@ -64,7 +71,12 @@ Phases:
      keys, not causal), and head_dim 256 (gemma-2b): causal MQA at 2 × 8
      × 2048, window 100, causal Sq = 300 / Sk = 428, non-causal Sq = 100
      / Sk = 37; o and lse within the stated tolerances, and o == 1 for an
-     all-ones v;
+     all-ones v; then at Llama's heads (B 1, Hq 32, Hkv 8, D 64) B4
+     against ``ops.flash_attention(impl="reference")``, which takes the
+     chunked ``ref.attention_chunked`` from 8192 rows on (counted): causal
+     and window 1024 at Sq = Sk = 8192 in float32 and bf16, and causal bf16
+     at 32768 (``prefill_32k``'s length, where ``attention_ref``'s logits
+     would take 128 GiB), with the reference's seconds and peak memory;
   8. the LM slice at full Llama-3.2-1B width (16 layers, d_model 2048,
      random weights from seed 0 on the card): ``Model.prefill`` of 8
      prompts × 2048 tokens in bfloat16 through the kernel (one launch per
@@ -145,17 +157,19 @@ Phases:
      ``copyscore_store`` over the committed store (delta and all-padding
      chunks included) counts like its dense V·Vᵀ with one launch per chunk
      with a live entry;
- 17. the other modes at the full pass's width, on phase 5's corpus, index
-     and decisions (which equal the exact INDEX): (a) the ``incremental``
-     bootstrap (HYBRID) with F ≥ 0.97 against phase 5, its stage seconds,
-     rescored pairs, bound computations, shared values examined and peak
-     memory; (b) one incremental round on p perturbed by N(0, 0.01) from
-     seed 1, F ≥ 0.95 against a ``bucketed`` pass on the perturbed p, with
-     its pass-1 settled share and seconds; (c) ``sample_verify`` at rate
-     0.1 (SCALESAMPLE): B1's launches on the sampled pass, every candidate
-     deciding as phase 5 does and no pair outside the candidates copying,
-     the candidates, sweep rounds, recall of phase 5's copying pairs and
-     the seconds of each stage;
+ 17. the other modes on a book-like corpus of 8192 sources × 8192 items
+     (``SLICE_SPEC``, half the full pass's of each), against a bucketed
+     pass on it (its index build and pass timed): (a) the ``incremental``
+     bootstrap (HYBRID) with F ≥ 0.97 against that pass, its stage
+     seconds, rescored pairs, bound computations, shared values examined
+     and peak memory; (b) one incremental round on p perturbed by N(0,
+     0.01) from seed 1, F ≥ 0.95 against a ``bucketed`` pass on the
+     perturbed p, with its pass-1 settled share and seconds; (c)
+     ``sample_verify`` at rate 0.1 (SCALESAMPLE): B1's launches on the
+     sampled pass, every candidate deciding as the bucketed pass does and
+     no pair outside the candidates copying, the candidates, sweep
+     rounds, recall of the bucketed pass's copying pairs and the seconds
+     of each stage;
  18. the row-range shard plane on phase 5's corpus: (a) its own index,
      built with the streaming seal (4 owners, bitpacked, spilled under a cap
      of half an owner's packed slice in a temporary directory), the owner
@@ -229,20 +243,29 @@ Phases:
      gradient of ``Model.loss`` at full hymba-1.5b width on 1 × 2048
      tokens, depth cut to 4 layers of the plan's structure, through the
      kernels in float32 against the reference attention (per leaf) and in
-     bf16 (cosine), phase 11's bars, launches (8, 4, 4); (c)
-     ``runtime.train`` (float32 parameters, bf16 compute, remat, AdamW) on
-     one fixed batch: hymba-1.5b at full width and depth, 4 steps of 2 ×
-     2048, launches (64, 32, 32) a step, and falcon-mamba-7b at full width
-     with 16 of its 64 layers (AdamW's state at 64 layers exceeds the
-     card), 4 steps of 4 × 1024, no launch; step-0 losses in stated bands,
-     the last lower by a stated margin, step time, tokens/s, peak memory
-     and the scan's share of one more step; the train CLI on both
-     (``--reduced``); (d) B5 and B6 at hymba's training shapes (B 4, Hq 25,
+     bf16 (cosine), phase 11's bars, launches (8, 4, 4); then the sliced
+     Adafactor update (``optim.adafactor``) against its whole-leaf plain
+     version (``optim.adafactor_ref``) on identical copies of
+     falcon-mamba-7b's parameters at full width and 4 layers, 2 updates:
+     parameters and factors within 1e-6 of each leaf's largest entry; (c)
+     ``runtime.train`` (float32 parameters, bf16 compute, remat) on one
+     fixed batch at full width and depth: hymba-1.5b with AdamW, 3 steps of
+     2 × 2048, launches (64, 32, 32) a step, and falcon-mamba-7b's 64
+     layers with Adafactor (AdamW's state would exceed the card), 4 steps
+     of 4 × 256, no launch; step-0 losses in stated bands, the last lower
+     by a stated margin, step time, tokens/s, peak memory, the model-FLOP
+     share (``launch/roofline.py``'s ``count_params`` and
+     ``model_flops_for``), the scan's share of one more step and the
+     optimizer update's own rise of memory in it (Adafactor's below 6
+     GiB); the train CLI (``--reduced``) on both and on grok-1-314b, whose
+     config's Adafactor trains the ``moe`` kind through B4–B6, launches
+     (8, 4, 4); (d) B5 and B6 at hymba's training shapes (B 4, Hq 25,
      Hkv 5, S 2048, D 64, bf16, window 1024 and causal) against their plain
      versions, timed beside the plain versions, the backward of
      ``F.scaled_dot_product_attention`` with the same boolean mask and their
-     bounds. B4's ``launches_by_path`` add Llama's and hymba's training,
-     B5's and B6's hymba's training to Llama's;
+     bounds. B4's ``launches_by_path`` add Llama's and hymba's training
+     and grok's CLI run, B5's and B6's hymba's training and grok's CLI run
+     to Llama's;
  23. the ``moe`` and ``cross`` kinds and QKV bias served at full width,
      random float32 weights from seed 0 on the card, one model at a time:
      qwen2.5-3b (36 layers, QKV biases drawn N(0, 0.5)), musicgen-large (48
@@ -295,6 +318,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -303,6 +327,18 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# before the first CUDA allocation: falcon-mamba-7b's training (phase 22)
+# peaks at ~70 of the card's 79 GiB, stacking a 16 GiB gradient, and with
+# fixed segments its step failed with 17 GiB reserved but fragmented
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+try:
+    # the card's HBM bytes/s and dense bf16 tensor-core FLOP/s, from the
+    # port's roofline (NVIDIA H100 80GB HBM3, 700 W); main() exits 2 where
+    # the checkout is absent
+    from repro_torch.launch.roofline import HBM_BW as HBM_BPS
+    from repro_torch.launch.roofline import PEAK_FLOPS_BF16 as BF16_OPS
+except ImportError:
+    HBM_BPS = BF16_OPS = None
 
 # the full-size pass: the repo's single-host tier, S = 16384 sources
 FULL_SOURCES = 16384
@@ -316,9 +352,8 @@ WORLD_2048 = dict(n_sources=2048, n_items=3072, coverage="book", n_cliques=50,
                   clique_size=3, clique_items=12, seed=0)
 # comparisons of the kernel with its plain version
 RTOL, ATOL = 2e-5, 1e-4
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, int8 tensor-core
-# op/s, float32 op/s outside the tensor cores
-HBM_BPS = 3.35e12
+# H100 SXM peaks (NVIDIA data sheet, dense) beside HBM_BPS and BF16_OPS:
+# int8 tensor-core op/s, float32 op/s outside the tensor cores
 INT8_OPS = 1.979e15
 F32_OPS = 67e12
 # float32 operations the kernel does per pair and chunk after the count
@@ -338,13 +373,15 @@ COPYSCORE_RECTS = ((100, 37), (64, 130))
 LEGACY_TILE, LEGACY_BUCKETS = 256, 64
 # its CPU numbers (BENCH_kernel.json: "backend": "cpu"), quoted beside ours
 LEGACY_CPU_SPEEDUPS = "1.26x (int8) and 1.49x (f32)"
+# phase 4's autotune sweep at S=2048: tile edges × chunk groups, 2 points
+# of runtime.platform.autotune's default grid (the JAX package's
+# benchmarks/run.py:666), cut from all 4 after the script ran 1,328.8 s
+AUTOTUNE_TILES, AUTOTUNE_GROUPS = (128, 256), (1,)
 # the mutation schedule (phase 16): corpus rows before the commits, commit
 # sizes, store chunk width, and the committed rows retracted again
 MUTATION_BASE_ROWS = 472
 MUTATION_COMMITS = (8, 32)
 MUTATION_CHUNK = 8
-# bf16 tensor-core op/s (dense), the rate the attention's products bound
-BF16_OPS = 989e12
 # flash attention, kernel vs plain version (tests/test_kernels_flash.py's):
 # float32 o and lse 2e-5; bfloat16 o 2e-2 (one bf16 rounding of O(1)
 # entries); lse is float32 arithmetic on the same inputs in both dtypes
@@ -376,6 +413,15 @@ FLASH_CASES = [
     ("head_dim 256 ragged Sq=100 Sk=37 non-causal", 1, 4, 2, 100, 37, 256,
      False, None),
 ]
+# B4 against the chunked reference attention (phase 7), which
+# ops.flash_attention(impl="reference") takes from 8192 query rows on, at
+# Llama-3.2-1B's attention heads (B, Hq, Hkv, D), causal: (name, Sq = Sk,
+# window, dtypes); 32768 is the prefill_32k shape's length, where
+# attention_ref's float32 logits would take B·Hq·S²·4 B = 128 GiB
+CHUNKED_HEADS = (1, 32, 8, 64)
+CHUNKED_CASES = (("causal", 8192, None, ("float32", "bfloat16")),
+                 ("window 1024", 8192, 1024, ("float32", "bfloat16")),
+                 ("causal, prefill_32k's length", 32768, None, ("bfloat16",)))
 # Llama-3.2-1B prefill (phase 8) and the kernel's timing shapes (phase 9)
 PREFILL_BATCH, PREFILL_LEN = 8, 2048
 # bf16 compute against the float32 reference, last-position logits (std
@@ -466,14 +512,35 @@ SSM_SCAN_TOL = dict(rtol=1e-4, atol=1e-4)
 # phase 11's bars (GRAD_F32_REL_MAX, GRAD_BF16_COS_MIN)
 SSM_GRAD_PLAN = (("hybrid_full", 1), ("hybrid_swa", 2), ("hybrid_full", 1))
 SSM_GRAD_LEN = 2048
-# (c) runtime.train at full width: (batch, length, steps, layers; None is
-# the config's depth). falcon-mamba-7b keeps 16 of its 64 layers: AdamW's
-# float32 parameters, gradients and moments of 7.27 B parameters take 116
-# GB, more than the card's 80 GB; 16 layers (2.2 B parameters) take ~35 GB.
+# (c) runtime.train at full width and depth: (batch, length, steps,
+# optimizer). falcon-mamba-7b trains with Adafactor: AdamW's float32
+# parameters, gradients and two moments of its 7.27 B parameters would take
+# 116 GB, more than the card's 80 GB; with Adafactor's factors the
+# parameters and gradients take 54 GiB. Its length is 256 (1024 at 16
+# layers before, 512 until the script ran 1,328.8 s on a slow host): the
+# step is the scan's host launches, which grow with layers × length.
 # hymba at batch 2 (4 before) since the script ran 1,175 s against its
-# 1,120 s bar
-SSM_TRAIN = {"hymba-1.5b": (2, 2048, 4, None),
-             "falcon-mamba-7b": (4, 1024, 4, 16)}
+# 1,120 s bar, and 3 steps (4 before) after the 1,328.8 s
+SSM_TRAIN = {"hymba-1.5b": (2, 2048, 3, "adamw"),
+             "falcon-mamba-7b": (4, 256, 4, "adafactor")}
+# the Adafactor update's own rise (its peak less the allocation before it)
+# must stay below this: the 1 GiB embed / lm_head leaves are updated whole
+# (a few leaf-sized temporaries), a stacked leaf one layer's matrix at a
+# time; a whole-leaf update of in_proj (64 × 4096 × 16384 float32, 16
+# GiB) would need ~48 GiB
+ADAFACTOR_RISE_MAX = 6 * 2**30
+# (b') the sliced Adafactor update against the plain whole-leaf one
+# (optim.adafactor_ref) at falcon-mamba-7b's width with this many layers,
+# 2 updates of seeded N(0, 1) gradients on identical copies: parameters
+# and factors per leaf within this share of the leaf's largest entry (only
+# the order of the RMS sum and of the factors' means differs)
+ADAFACTOR_CHECK_LAYERS = 4
+ADAFACTOR_CHECK_REL = 1e-6
+# the train CLI --reduced --steps 2 on the card: the two SSM archs, and
+# grok-1-314b through its config's Adafactor on the moe kind, whose 2
+# layers launch (fwd, dq, dkv) (4, 2, 2) a step (forward and remat)
+SSM_CLI = ("hymba-1.5b", "falcon-mamba-7b", "grok-1-314b")
+GROK_CLI_LAUNCHES = (8, 4, 4)
 SSM_TRAIN_WARMUP = 1                 # lr 0 at step 0, the peak at step 1
 # step-0 loss ≈ ln V + σ²/2 with logits of std σ = 0.02·√d_model from a
 # unit-RMS final state and a head of std 0.02: hymba ln 32001 + 0.32 ≈
@@ -669,6 +736,59 @@ def phase_flash_cases(torch, dev, ops, ref) -> float:
             log(f"[7] {name} {str(dtype)[6:]} (B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} "
                 f"Sk={Sk} D={D}): max |Δo| {d_o:.3e}, max |Δlse| {d_lse:.3e}, "
                 f"all-ones v → 1")
+    return max(worst, _chunked_cases(torch, dev, ops, ref))
+
+
+def _chunked_cases(torch, dev, ops, ref) -> float:
+    """Phase 7's long cases: B4 against ``ops.flash_attention(impl=
+    "reference")``, which must take ``ref.attention_chunked`` (counted
+    through a wrapper) at these lengths; o within phase 7's tolerances, the
+    reference's seconds and peak memory above its inputs. Returns the worst
+    |Δo|."""
+    B, Hq, Hkv, D = CHUNKED_HEADS
+    chunked, calls = ref.attention_chunked, []
+
+    def counted(q, *a, **kw):
+        calls.append(q.shape[2])
+        return chunked(q, *a, **kw)
+
+    worst = 0.0
+    ref.attention_chunked = counted
+    try:
+        for i, (name, S, window, dtypes) in enumerate(CHUNKED_CASES):
+            for dname in dtypes:
+                dtype = getattr(torch, dname)
+                q, k, v = _flash_inputs(torch, dev, 70 + i, B, Hq, Hkv, S, S, D,
+                                        dtype)
+                o, _ = ops.flash_attention_fwd(q, k, v, causal=True,
+                                               window=window)
+                torch.cuda.synchronize()
+                calls.clear()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                o_ref = ops.flash_attention(q, k, v, causal=True, window=window,
+                                            impl="reference")
+                torch.cuda.synchronize()
+                ref_s = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() - base
+                if calls != [S]:
+                    raise AssertionError(f"impl='reference' at Sq={S} called "
+                                         f"attention_chunked {calls}, not once")
+                tol = FLASH_F32_TOL if dtype == torch.float32 else FLASH_BF16_TOL
+                torch.testing.assert_close(o.float(), o_ref.float(), **tol)
+                d_o = float((o.float() - o_ref.float()).abs().max())
+                worst = max(worst, d_o)
+                log(f"[7] B4 vs the chunked reference, {name} {dname} (B={B} "
+                    f"Hq={Hq} Hkv={Hkv} Sq=Sk={S} D={D} window {window}): max "
+                    f"|Δo| {d_o:.3e}; reference {ref_s:.3f} s, peak "
+                    f"{peak / 2**30:.3f} GiB above its inputs (chunks of 2048 "
+                    f"rows; attention_ref's float32 logits alone would take "
+                    f"{B * Hq * S * S * 4 / 2**30:.0f} GiB)")
+                del q, k, v, o, o_ref
+                torch.cuda.empty_cache()
+    finally:
+        ref.attention_chunked = chunked
     return worst
 
 
@@ -1779,6 +1899,53 @@ def phase_prefetch(torch, np, dev, ops, cfg, ds, p, index, exact) -> None:
         "decisions at depth 2 == exact INDEX")
 
 
+def phase_autotune(torch, np, dev, ops, cfg, ds, p, index, exact) -> None:
+    """Phase 4, S=2048: ``runtime.platform.autotune`` over ``AUTOTUNE_TILES``
+    × ``AUTOTUNE_GROUPS`` with the wall seconds of a bucketed ``detect`` a
+    point, into a temporary cache directory: every point decides alike and
+    like the exact INDEX, the cache file is keyed ``cuda-sm90``, and
+    ``load_autotune`` reads the winner back."""
+    import tempfile
+
+    from repro_torch.core import DetectionEngine
+    from repro_torch.runtime.platform import autotune, load_autotune
+
+    decisions = {}
+
+    def run_fn(tile, group):
+        eng = DetectionEngine(cfg, tile=tile, chunk_group=group)
+        ops.tile_scores.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.detect(ds, p, index=index)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if ops.tile_scores.launches <= 0:
+            raise AssertionError(f"autotune tile {tile} group {group}: no launch")
+        decisions[(tile, group)] = res.copying
+        return wall
+
+    with tempfile.TemporaryDirectory() as cache_dir:
+        won = autotune(run_fn, tiles=AUTOTUNE_TILES, groups=AUTOTUNE_GROUPS,
+                       cache_dir=cache_dir, device=dev)
+        files = sorted(os.listdir(cache_dir))
+        back = load_autotune(cache_dir, device=dev)
+    if files != ["cuda-sm90.json"] or won["backend"] != "cuda-sm90":
+        raise AssertionError(f"autotune cache {files}, key {won['backend']}: "
+                             f"not cuda-sm90")
+    if back != won:
+        raise AssertionError("load_autotune did not read the winner back")
+    for point, copying in decisions.items():
+        if not np.array_equal(copying, exact.copying):
+            raise AssertionError(f"autotune point {point}: decisions != exact "
+                                 f"INDEX")
+    log(f"[4] S=2048 autotune (tile × chunk_group) into {files[0]}: sweep "
+        + ", ".join(f"({r['tile']}, {r['chunk_group']}) {r['wall_s']} s"
+                    for r in won["sweep"])
+        + f"; winner tile {won['tile']} chunk_group {won['chunk_group']}, read "
+        f"back by load_autotune; every point's decisions == exact INDEX")
+
+
 def phase_modes(torch, np, dev, ops, cfg, ds, p, index) -> None:
     """Phase 4, S=512: BOUND, BOUND+, HYBRID and sampled (rate 0.1) on the
     card against the same functions with device="cpu": decisions, the
@@ -1852,17 +2019,34 @@ def _perturb(np, p, seed, scale):
     return np.clip(p + np.where(p > 0, noise, 0.0), 1e-3, 0.999)
 
 
-def phase_slice(torch, np, dev, ops, cfg, ds, p, index, copying5) -> None:
-    """Phase 17: this slice's modes at the full pass's width (phase 5's
-    S=16384 corpus, index and decisions, which equal the exact INDEX):
-    (a) the INCREMENTAL bootstrap (HYBRID), F ≥ 0.97 against phase 5;
-    (b) one INCREMENTAL round on p perturbed by N(0, 0.01) from seed 1,
-    F ≥ 0.95 against a bucketed pass on the perturbed p; (c) sample_verify
-    at rate 0.1 (SCALESAMPLE): every candidate decides as phase 5 does, no
-    pair outside the candidates is copying."""
-    from repro_torch.core import DetectionEngine, pair_f_measure
+def phase_slice(torch, np, dev, ops, cfg) -> None:
+    """Phase 17: the other modes on the ``SLICE_SPEC`` corpus, against a
+    bucketed pass on it (whose decisions equal the exact INDEX, as phase
+    4 holds them at S=512 and 2048): (a) the INCREMENTAL bootstrap
+    (HYBRID), F ≥ 0.97 against that pass; (b) one INCREMENTAL round on p
+    perturbed by N(0, 0.01) from seed 1, F ≥ 0.95 against a bucketed pass
+    on the perturbed p; (c) sample_verify at rate 0.1 (SCALESAMPLE): every
+    candidate decides as the bucketed pass does, no pair outside the
+    candidates is copying."""
+    from repro_torch.core import DetectionEngine, build_index, pair_f_measure
+    from repro_torch.data.claims import (
+        SyntheticSpec,
+        oracle_claim_probs,
+        synthetic_claims,
+    )
 
-    truth5 = _pairs_of(np, copying5)
+    sc = synthetic_claims(SyntheticSpec(**SLICE_SPEC))
+    ds, p = sc.dataset, oracle_claim_probs(sc)
+    t0 = time.perf_counter()
+    index = build_index(ds, p, cfg, device=dev)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    copying_b = DetectionEngine(cfg).detect(ds, p, index=index).copying
+    truth_b = _pairs_of(np, copying_b)
+    log(f"[17] corpus S={ds.n_sources} D={ds.n_items} (cut from phase 5's "
+        f"{FULL_SOURCES} × {FULL_ITEMS}): index build {build_s:.3f} s, the "
+        f"bucketed pass {time.perf_counter() - t0:.3f} s, {len(truth_b)} "
+        f"copying pairs")
 
     def f_measure(copying, truth):
         return pair_f_measure(_pairs_of(np, copying), truth)
@@ -1876,7 +2060,7 @@ def phase_slice(torch, np, dev, ops, cfg, ds, p, index, copying5) -> None:
     boot = eng.detect(ds, p, index=index)
     boot_s = time.perf_counter() - t0
     st = eng.last_stats
-    prec, rec, f = f_measure(boot.copying, truth5)
+    prec, rec, f = f_measure(boot.copying, truth_b)
     log(f"[17a] incremental bootstrap (HYBRID) S={ds.n_sources}: {boot_s:.3f} "
         f"s (considered {st['considered_s']:.3f}, bound scan "
         f"{st['bound_scan_s']:.3f} over {st['buckets']} buckets, rescore "
@@ -1885,7 +2069,7 @@ def phase_slice(torch, np, dev, ops, cfg, ds, p, index, copying5) -> None:
         f"{boot.counter.bound_computations}, shared_values_examined "
         f"{boot.counter.shared_values_examined}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    log(f"[17a] against phase 5 (== exact INDEX): precision {prec:.4f} "
+    log(f"[17a] against the bucketed pass: precision {prec:.4f} "
         f"recall {rec:.4f} F {f:.4f} ({len(_pairs_of(np, boot.copying))} "
         f"copying pairs)")
     if f < 0.97:
@@ -1931,9 +2115,9 @@ def phase_slice(torch, np, dev, ops, cfg, ds, p, index, copying5) -> None:
     if launches <= 0 or launches != ss["kernel_launches"]:
         raise AssertionError(f"sample_verify: B1 launches {launches}, the "
                              f"sampled pass counted {ss['kernel_launches']}")
-    if not (res.copying[cand] == copying5[cand]).all():
+    if not (res.copying[cand] == copying_b[cand]).all():
         raise AssertionError("sample_verify: a candidate pair decides unlike "
-                             "phase 5 (the exact INDEX)")
+                             "the bucketed pass (the exact INDEX)")
     if res.copying[~cand].any():
         raise AssertionError("sample_verify: a pair outside the candidate "
                              "set is copying")
@@ -1946,10 +2130,18 @@ def phase_slice(torch, np, dev, ops, cfg, ds, p, index, copying5) -> None:
         f"sweep {st['sweep_s']:.3f} s ({st['sweep_rounds']} rounds, slack "
         f"{st['slack_final']}), exact rescore {st['rescore_s']:.3f} s of "
         f"{st['candidate_pairs']} candidates")
-    log(f"[17c] every candidate decides as phase 5, none outside is copying; "
-        f"recall of phase 5's {len(truth5)} copying pairs "
-        f"{len(found & truth5) / max(len(truth5), 1):.4f}; peak device memory "
+    log(f"[17c] every candidate decides as the bucketed pass, none outside "
+        f"is copying; recall of its {len(truth_b)} copying pairs "
+        f"{len(found & truth_b) / max(len(truth_b), 1):.4f}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
+# phase 17's corpus: the full pass's book-like spec at half its sources and
+# items. Cut from phase 5's 16384 × 16384 corpus after the script ran
+# 1,328.8 s (phase 17 461.8 s of it) against its 1,200 s limit on a slow
+# host: the exact rescore that leads each mode scales with pairs × items
+SLICE_SPEC = dict(n_sources=8192, n_items=8192, coverage="book", n_cliques=100,
+                  clique_size=3, clique_items=12, seed=0)
 
 
 # the shard plane (phase 18): owners, and the spill cap as a fraction of the
@@ -3251,28 +3443,29 @@ class _ScanTimer:
 def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
     """Phase 22: training the SSM kinds. (a) the scan Function against its
     plain loop at falcon-mamba-7b's width; (b) gradient parity at full
-    hymba-1.5b width; (c) ``runtime.train`` for hymba-1.5b at full width
-    and depth and falcon-mamba-7b at full width with 16 layers, and the
-    train CLI on both; (d) B5 and B6 at hymba's training shapes. Returns
-    the kernels' launches in hymba's training run."""
+    hymba-1.5b width, and the sliced Adafactor update against its plain
+    version at falcon's width; (c) ``runtime.train`` for hymba-1.5b
+    (AdamW) and falcon-mamba-7b (Adafactor) at full width and depth, and
+    the train CLI on both and on grok-1-314b (Adafactor, the moe kind);
+    (d) B5 and B6 at hymba's training shapes. Returns the kernels'
+    launches in hymba's training run and in grok's CLI run."""
     import itertools
 
     import torch.nn.functional as F
 
-    from repro_torch.configs import get_config
+    from repro_torch.configs import ShapeConfig, get_config
     from repro_torch.data.tokens import batches, synthetic_corpus
+    from repro_torch.launch.roofline import count_params, model_flops_for
     from repro_torch.launch.train import main as train_main
     from repro_torch.models import Model, mamba
-    from repro_torch.optim import adamw, warmup_cosine
+    from repro_torch.optim import get_optimizer, warmup_cosine
     from repro_torch.runtime import StepMonitor, make_train_step, train
 
     t_phase = time.perf_counter()
-    falcon_cut = SSM_TRAIN["falcon-mamba-7b"][3]
-    log(f"[22] training the SSM kinds; falcon-mamba-7b is cut to "
-        f"{falcon_cut} of its 64 layers: AdamW's float32 parameters, "
-        f"gradients and two moments of its 7.27 B parameters take 116 GB, "
-        f"more than the card's 80 GB (a factored optimizer waits, ROADMAP "
-        f"A.7); hymba-1.5b trains at full width and depth")
+    log("[22] training the SSM kinds at full width and depth: hymba-1.5b "
+        "with AdamW, falcon-mamba-7b's 64 layers with Adafactor (AdamW's "
+        "float32 parameters, gradients and two moments of its 7.27 B "
+        "parameters would take 116 GB, more than the card's 80 GB)")
 
     # (a) the scan Function against autograd of the plain loop
     c = SSM_SCAN_CASE
@@ -3352,6 +3545,7 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
     del params, g_ref, g_bf, model, corpus
     gc.collect()
     torch.cuda.empty_cache()
+    _adafactor_check(torch, dev)
 
     # (c) runtime.train at full width on one fixed batch, repeated
     per_step = []
@@ -3365,10 +3559,9 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
             return super().record(step, seconds)
 
     hymba_launches = None
-    for arch, (B, S, steps, layers) in SSM_TRAIN.items():
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    for arch, (B, S, steps, opt_name) in SSM_TRAIN.items():
         cfg = get_config(arch)
-        if layers is not None:
-            cfg = cfg.replace(n_layers=layers)
         n_attn = sum(k for kd, k in cfg.plan if kd != "ssm")
         n_ssm = sum(k for _, k in cfg.plan)
         corpus = synthetic_corpus(vocab_size=cfg.vocab_size, doc_len=S + 1,
@@ -3378,13 +3571,24 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
         per_step.clear()
         torch.cuda.reset_peak_memory_stats()
         _reset_launches(ops)
+        failed = []
+
+        def train_log(msg):                 # train() retries a failed step
+            log(msg)
+            if " failed (" in msg:
+                failed.append(msg)
+
         t0 = time.perf_counter()
         state, hist = train(model, itertools.repeat(batch), steps=steps,
-                            peak_lr=TRAIN_PEAK_LR, warmup=SSM_TRAIN_WARMUP,
-                            monitor=LaunchMonitor(), log_every=1, log_fn=log)
+                            optimizer_name=opt_name, peak_lr=TRAIN_PEAK_LR,
+                            warmup=SSM_TRAIN_WARMUP, monitor=LaunchMonitor(),
+                            log_every=1, log_fn=train_log)
         train_s = time.perf_counter() - t0
+        if failed:
+            raise AssertionError(f"{arch}: {len(failed)} training steps failed "
+                                 f"and were retried: {failed[0]}")
         peak = torch.cuda.max_memory_allocated()
-        n_params = sum(int(t.numel()) for t in _tree_leaves(state["params"]))
+        n_params, n_active = count_params(state["params"])
         want = (2 * n_attn, n_attn, n_attn)
         if per_step != [want] * steps:
             raise AssertionError(f"{arch}: launches (fwd, dq, dkv) per step "
@@ -3394,16 +3598,21 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
         losses = [h["loss"] for h in hist]
         secs = [h["seconds"] for h in hist]
         step_s = sum(secs[1:]) / (len(secs) - 1)      # step 0 warms up
-        log(f"[22c] {arch}: {cfg.n_layers} layers {cfg.plan}, {n_params} "
+        mflops = model_flops_for(cfg, ShapeConfig(arch, S, B, "train"),
+                                 n_params, n_active)
+        log(f"[22c] {arch}: {cfg.n_layers} layers {cfg.plan}, {n_params:.0f} "
             f"parameters; train {steps} steps of {B}x{S} (float32 params, "
-            f"bf16 compute, remat, AdamW, peak lr {TRAIN_PEAK_LR}, warmup "
+            f"bf16 compute, remat, {opt_name}, peak lr {TRAIN_PEAK_LR}, warmup "
             f"{SSM_TRAIN_WARMUP}) in {train_s:.3f} s incl. init; losses "
             f"{[round(x, 4) for x in losses]}; step seconds "
             f"{[round(x, 4) for x in secs]}")
         log(f"[22c] {arch} step {step_s * 1e3:.2f} ms (mean of steps "
             f"1..{steps - 1}), {B * S / step_s:.1f} tok/s, peak device memory "
-            f"{peak / 2**30:.3f} GiB; launches per step (fwd, dq, dkv) "
-            f"{per_step[0]}")
+            f"{peak / 2**30:.3f} GiB of the card's {card_bytes / 2**30:.1f}; "
+            f"launches per step (fwd, dq, dkv) {per_step[0]}; model FLOPs "
+            f"6·N_active·B·S = {mflops:.4e} a step (N_active {n_active:.0f}, "
+            f"launch/roofline.py), {mflops / step_s / BF16_OPS:.2%} of the "
+            f"{BF16_OPS / 1e12:.0f} TFLOP/s bf16 peak")
         lo, hi = SSM_LOSS0_BAND[arch]
         if not all(math.isfinite(x) for x in losses) or not lo <= losses[0] <= hi:
             raise AssertionError(f"{arch}: step-0 loss {losses[0]} outside "
@@ -3412,8 +3621,10 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
             raise AssertionError(f"{arch}: loss fell from {losses[0]} to "
                                  f"{losses[-1]}, less than {SSM_LOSS_DROP_MIN}")
 
-        # the scan's share of one more step, each Function call timed
-        step = make_train_step(model, adamw(), warmup_cosine(
+        # the scan's share of one more step, each Function call timed, and
+        # the optimizer update's own rise of device memory
+        opt, rise = _rise_measured(torch, get_optimizer(opt_name)())
+        step = make_train_step(model, opt, warmup_cosine(
             TRAIN_PEAK_LR, SSM_TRAIN_WARMUP, steps))
         with _ScanTimer(torch, mamba) as st:
             torch.cuda.synchronize()
@@ -3432,21 +3643,42 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
         if (len(st.fwd), len(st.bwd)) != (2 * n_ssm, n_ssm):
             raise AssertionError(f"{arch}: {len(st.fwd)} scan forwards and "
                                  f"{len(st.bwd)} backwards in a step")
-        del state, hist, model, corpus, step
+        log(f"[22c] {arch} {opt_name} update in that step: {rise[1]:.4f} s, "
+            f"its own rise {rise[0] / 2**30:.3f} GiB above the "
+            f"{rise[2] / 2**30:.3f} GiB allocated before it"
+            + (f" (bar {ADAFACTOR_RISE_MAX / 2**30:.0f} GiB)"
+               if opt_name == "adafactor" else ""))
+        if opt_name == "adafactor" and not rise[0] < ADAFACTOR_RISE_MAX:
+            raise AssertionError(f"{arch}: the Adafactor update rose "
+                                 f"{rise[0]} B, not below {ADAFACTOR_RISE_MAX}")
+        del state, hist, model, corpus, step, opt
         gc.collect()
         torch.cuda.empty_cache()
 
-    # the train CLI on both archs, on the card by default
-    for arch in SSM_TRAIN:
+    # the train CLI, on the card by default: both SSM archs, and grok-1
+    # through its config's Adafactor on the moe kind (B4–B6)
+    grok_launches = None
+    for arch in SSM_CLI:
         t0 = time.perf_counter()
-        _, hist = train_main(["--arch", arch, "--reduced", "--steps", "2",
-                              "--batch", "2", "--seq", "128"])
+        _reset_launches(ops)
+        state, hist = train_main(["--arch", arch, "--reduced", "--steps", "2",
+                                  "--batch", "2", "--seq", "128"])
+        launches = _count_launches(ops)
         losses = [h["loss"] for h in hist]
         log(f"[22c] train CLI --arch {arch} --reduced --steps 2 --batch 2 "
             f"--seq 128 on the card: {time.perf_counter() - t0:.3f} s, losses "
-            f"{[round(x, 4) for x in losses]}")
+            f"{[round(x, 4) for x in losses]}, optimizer state "
+            f"{sorted(state['opt'])}, launches (fwd, dq, dkv) {launches}")
         if len(losses) != 2 or not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"train CLI --arch {arch}: losses {losses}")
+        if arch == "grok-1-314b":
+            if "f" not in state["opt"] or launches != GROK_CLI_LAUNCHES:
+                raise AssertionError(f"grok-1's CLI run: optimizer state "
+                                     f"{sorted(state['opt'])}, launches "
+                                     f"{launches}, not Adafactor's factors "
+                                     f"and {GROK_CLI_LAUNCHES}")
+            grok_launches = launches
+        del state, hist
 
     # (d) B5 and B6 at hymba's training shapes, windowed and full
     B, Hq, Hkv, S, D = SSM_BWD_SHAPE
@@ -3507,7 +3739,81 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
         f" dk/dv {tot[1]:.3f} ms (plain {tot[3]:.3f}, bound {tot[6]:.3f}); "
         f"SDPA's backward {tot[4]:.3f} ms")
     log(f"[22] phase 22: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": hymba_launches}
+    return {"launches": hymba_launches, "grok_cli": grok_launches}
+
+
+def _rise_measured(torch, opt):
+    """``opt`` with its update measured: ``rise`` holds [the peak device
+    memory during the last update less the allocation before it, its
+    seconds, that allocation]."""
+    from repro_torch.optim import Optimizer
+
+    rise = [0, 0.0, 0]
+
+    def update(*args):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = opt.update(*args)
+        torch.cuda.synchronize()
+        rise[:] = [torch.cuda.max_memory_allocated() - before,
+                   time.perf_counter() - t0, before]
+        return out
+
+    return Optimizer(init=opt.init, update=update), rise
+
+
+def _adafactor_check(torch, dev) -> None:
+    """Phase 22's sliced Adafactor update (``optim.adafactor``: a stacked
+    leaf one layer's matrix at a time, in two passes) against the plain
+    whole-leaf ``optim.adafactor_ref`` on identical copies of
+    falcon-mamba-7b's parameters at full width and
+    ``ADAFACTOR_CHECK_LAYERS`` layers, 2 updates of the same seeded
+    gradients: every parameter and factor leaf within
+    ``ADAFACTOR_CHECK_REL`` of its largest entry; each update's own rise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    from repro_torch.models.common import tree_leaves, tree_map
+    from repro_torch.optim import adafactor, adafactor_ref
+
+    cfg = get_config("falcon-mamba-7b").replace(n_layers=ADAFACTOR_CHECK_LAYERS)
+    first = Model(cfg).init(seed=0)
+    runs = []
+    for name, make in (("sliced", adafactor), ("whole-leaf", adafactor_ref)):
+        params = tree_map(lambda t: t.clone(), first)
+        opt, rise = _rise_measured(torch, make())
+        state, rises = opt.init(params), []
+        for i in range(2):
+            gen = torch.Generator(device=dev).manual_seed(50 + i)
+            grads = tree_map(lambda t: torch.randn(
+                t.shape, generator=gen, device=dev), params)
+            opt.update(grads, state, params, i, 1e-2)
+            rises.append((rise[0], rise[1]))
+            del grads
+        runs.append((name, params, state, rises))
+    worst = {}
+    (_, p, s, _), (_, p_ref, s_ref, _) = runs
+    for what, a_tree, b_tree in (("params", p, p_ref),
+                                 ("factors", s["f"], s_ref["f"])):
+        for a, b in zip(tree_leaves(a_tree), tree_leaves(b_tree)):
+            rel = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            worst[what] = max(worst.get(what, 0.0), rel)
+    stacked = sum(1 for t in tree_leaves(first) if t.ndim >= 3)
+    log(f"[22b] sliced Adafactor vs the whole-leaf plain version at "
+        f"falcon-mamba-7b's width, {cfg.n_layers} layers "
+        f"({len(tree_leaves(first))} leaves, {stacked} stacked of ≥ 3 dims), "
+        f"2 updates at lr 1e-2: max |Δ| / max |leaf| params "
+        f"{worst['params']:.3e}, vr/vc/v {worst['factors']:.3e} (≤ "
+        f"{ADAFACTOR_CHECK_REL}); " + "; ".join(
+            f"{name} updates {[round(x[1], 4) for x in rises]} s, rise "
+            f"{[round(x[0] / 2**30, 3) for x in rises]} GiB"
+            for name, _, _, rises in runs))
+    if not max(worst.values()) <= ADAFACTOR_CHECK_REL:
+        raise AssertionError(f"sliced Adafactor vs adafactor_ref: {worst}")
+    del first, runs, p, s, p_ref, s_ref
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _routes_recorded(moe, record: list):
@@ -4162,8 +4468,9 @@ def main() -> int:
         f"({len(exact.copying_pairs())} copying pairs), largest build chunk "
         f"{largest} B, group slab {st['peak_group_bytes']} B, launches "
         f"{st['kernel_launches']}")
-    phase_prefetch(torch, np, dev, ops, cfg, sc.dataset, p2k,
-                   build_index(sc.dataset, p2k, cfg, device=dev), exact)
+    idx2k_full = build_index(sc.dataset, p2k, cfg, device=dev)
+    phase_prefetch(torch, np, dev, ops, cfg, sc.dataset, p2k, idx2k_full, exact)
+    phase_autotune(torch, np, dev, ops, cfg, sc.dataset, p2k, idx2k_full, exact)
     phase_modes(torch, np, dev, ops, cfg, ds512, p512, idx512)
 
     # -- 5. the full-size pass ------------------------------------------------
@@ -4307,7 +4614,7 @@ def main() -> int:
           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     b1_pass = launches
     del (groups, acc, v, p_g, d_g, o_g, coords_g, stacks, args, v2,
-         ds512, idx512, idx2k, p512, p2k, exact)
+         ds512, idx512, idx2k, idx2k_full, p512, p2k, exact)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4337,16 +4644,13 @@ def main() -> int:
     marks.append(("16", time.perf_counter()))
     phase_mutation(torch, np, dev, ops, cfg)
 
-    # -- 17. this slice's modes at the full pass's width ---------------------
-    marks.append(("17", time.perf_counter()))
-    copying5 = res.copying
-    del eng, res, ctx                         # phase 5's grids leave the card
+    # -- 17. the other modes, on a corpus of their own ----------------------
+    # phase 5's data and grids leave the card first
+    del eng, res, ctx, sc, ds, p, index
     gc.collect()
     torch.cuda.empty_cache()
-    phase_slice(torch, np, dev, ops, cfg, ds, p, index, copying5)
-
-    # the detection side's data leave the card before the LM phases
-    del sc, ds, p, index, copying5
+    marks.append(("17", time.perf_counter()))
+    phase_slice(torch, np, dev, ops, cfg)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4410,19 +4714,22 @@ def main() -> int:
     marks.append(("24", time.perf_counter()))
     xtrain_paths = phase_xtrain(torch, np, dev, ops, ref, card)
     # B4's launches: Llama's prefill and training, hymba's prefill and
-    # training, qwen's, musicgen's and phi's prefills and musicgen's decode,
-    # gemma's prefill and the three training runs of phase 24, added; B5's
-    # and B6's: Llama's, hymba's and phase 24's training
+    # training, grok's train CLI run, qwen's, musicgen's and phi's prefills
+    # and musicgen's decode, gemma's prefill and the three training runs of
+    # phase 24, added; B5's and B6's: Llama's, hymba's, grok's CLI and phase
+    # 24's training
     b4_paths = {"llama3.2-1b prefill (phase 8)": llama["launches"],
                 "llama3.2-1b training (phase 11)": training["launches"]["fwd"],
                 "hymba-1.5b prefill (phase 21)": mamba_out["launches"],
                 "hymba-1.5b training (phase 22)": ssm_train["launches"][0],
+                "grok-1-314b train CLI (phase 22)": ssm_train["grok_cli"][0],
                 **xserve_paths, **xtrain_paths["fwd"]}
     bwd = []
     for name, key, i, line in (("flash_attention_bwd_dq", "dq", 1, 151),
                                ("flash_attention_bwd_dkv", "dkv", 2, 180)):
         paths = {"llama3.2-1b training (phase 11)": training["launches"][key],
                  "hymba-1.5b training (phase 22)": ssm_train["launches"][i],
+                 "grok-1-314b train CLI (phase 22)": ssm_train["grok_cli"][i],
                  **xtrain_paths[key]}
         bwd.append({
             "name": name,

@@ -21,8 +21,10 @@ Every kind serves and trains.
 ``"kernel"`` (the default) goes through ``kernels.ops.flash_attention_fwd``,
 which launches the hand-written CUDA kernel on a CUDA tensor and takes its
 plain PyTorch version on a CPU tensor; ``"reference"`` is the plain
-``kernels.ref.attention_ref``. (The JAX package names the kernel value
-``pallas`` and defaults to ``reference``.)
+``kernels.ref.attention_ref``, and from 8192 query rows on the chunked
+``kernels.ref.attention_chunked``, which ``"chunked"`` and
+``"chunked_unroll"`` take at every length. (The JAX package names the
+kernel value ``pallas`` and defaults to ``reference``.)
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-ATTENTION_IMPLS = ("kernel", "reference")
+ATTENTION_IMPLS = ("kernel", "reference", "chunked", "chunked_unroll")
 
 
 @dataclass(frozen=True)
@@ -70,10 +72,10 @@ class ModelConfig:
     # numerics / impl
     dtype: str = "bfloat16"          # compute dtype
     param_dtype: str = "float32"
-    attention_impl: str = "kernel"   # kernel | reference
+    attention_impl: str = "kernel"   # kernel | reference | chunked[_unroll]
     # training
     remat: bool = True
-    optimizer: str = "adamw"         # adamw | adafactor (waits, ROADMAP A.7)
+    optimizer: str = "adamw"         # adamw | adafactor
     # long-context capability (sub-quadratic decode)
     supports_long_context: bool = False
 

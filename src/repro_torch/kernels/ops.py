@@ -41,7 +41,10 @@
                            ``flash_attention_bwd``.
 ``flash_attention``      — the model's attention: ``impl="kernel"`` goes
                            through ``FlashAttention``, ``impl="reference"``
-                           is the plain ``ref.attention_ref`` (differentiated
+                           is the plain ``ref.attention_ref``, chunked
+                           (``ref.attention_chunked``) from 8192 query rows
+                           on, and ``"chunked"`` / ``"chunked_unroll"`` the
+                           chunked form at every length (all differentiated
                            by autograd).
 
 ``tile_scores.launches``, ``copyscore.launches``,
@@ -703,20 +706,40 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+#: From this many query rows on, ``impl="reference"`` takes the chunked
+#: form (the JAX package's switch at ``ops.flash_attention``).
+CHUNKED_FROM = 8192
+#: Query rows a chunk of the chunked form (``ref.attention_chunked``'s).
+CHUNK = 2048
+
+
 def flash_attention(q, k, v, *, causal=True, sm_scale=None, window=None,
                     impl="kernel"):
     """Differentiable attention output o (B, Hq, Sq, D) in q's dtype.
 
     ``impl="kernel"``: ``FlashAttention`` (the kernels on a CUDA tensor,
     their plain versions on a CPU tensor). ``impl="reference"``: the plain
-    ``ref.attention_ref``.
+    ``ref.attention_ref``, or from ``CHUNKED_FROM`` query rows on
+    ``ref.attention_chunked`` (O(chunk·Sk) logits, not O(Sq·Sk)).
+    ``"chunked"`` and ``"chunked_unroll"`` take ``ref.attention_chunked``
+    at every length: chunks of ``CHUNK`` rows (Sq a multiple of it), and
+    one chunk of Sq rows below it, where JAX's assert refuses the call (a
+    model's prefill and loss then run at any length below 2048 tokens, as
+    a model's decode rows and cross attention need). The plain forms are
+    differentiated by autograd.
     """
     if impl == "kernel":
         return FlashAttention.apply(q, k, v, causal, sm_scale, window)
+    kw = dict(causal=causal, sm_scale=sm_scale, window=window)
     if impl == "reference":
-        return kref.attention_ref(q, k, v, causal=causal, sm_scale=sm_scale,
-                                  window=window)
-    raise ValueError(f"impl must be 'kernel' or 'reference', got {impl!r}")
+        if q.shape[2] >= CHUNKED_FROM:
+            return kref.attention_chunked(q, k, v, **kw)
+        return kref.attention_ref(q, k, v, **kw)
+    if impl in ("chunked", "chunked_unroll"):
+        return kref.attention_chunked(q, k, v, chunk=min(CHUNK, q.shape[2]),
+                                      unroll=impl == "chunked_unroll", **kw)
+    raise ValueError(f"impl must be 'kernel', 'reference', 'chunked' or "
+                     f"'chunked_unroll', got {impl!r}")
 
 
 __all__ = ["FlashAttention", "copyscore", "copyscore_store", "copyscore_tile",

@@ -5,7 +5,9 @@ channel order and the same float32 association; for attention the same
 masking and float32 softmax), so the CPU tests hold it
 against the JAX package and ``chip_smoke.py`` holds the kernel against it
 on the card. On the card it is no yardstick of speed: it repeats the
-kernel's arithmetic with one PyTorch call per step.
+kernel's arithmetic with one PyTorch call per step. ``attention_chunked``
+is the reference attention at long sequences (8192 query rows and more),
+in O(chunk·Sk) memory.
 """
 from __future__ import annotations
 
@@ -193,6 +195,56 @@ def attention_ref(q, k, v, *, causal=True, sm_scale=None, window=None):
     return out.reshape(B, Hq, Sq, D).to(q.dtype)
 
 
+def attention_chunked(q, k, v, *, causal=True, sm_scale=None, window=None,
+                      chunk=2048, unroll=False):
+    """Reference attention over chunks of ``chunk`` query rows, so that the
+    float32 logits are (B, Hkv, group, chunk, Sk) at a time, O(chunk·Sk)
+    where ``attention_ref``'s are O(Sq·Sk): the JAX package's
+    ``attention_chunked``, with its memory design. k and v heads are never
+    repeated to the q heads (one product over the GQA group), k and v stay
+    in their dtype (each chunk's keys are taken to float32, so the products
+    accumulate in float32 as JAX's ``preferred_element_type`` does), and a
+    sliding-window layer reads only the min(window + chunk, Sk) keys a chunk
+    can see, from where JAX's ``dynamic_slice`` starts them. Masked logits
+    are the finite ``NEG_INF``, as JAX's; output in q's dtype. ``Sq`` must
+    be a multiple of ``chunk``. ``unroll`` is accepted and changes nothing:
+    JAX unrolls its ``lax.scan`` so that XLA's cost analysis counts every
+    chunk, and this Python loop runs every chunk already."""
+    del unroll
+    B, Hq, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = sm_scale if sm_scale is not None else 1.0 / (D ** 0.5)
+    assert Sq % chunk == 0, (Sq, chunk)
+    qg = q.reshape(B, Hkv, group, Sq, D)
+    kwin = min(window + chunk, Sk) if window is not None else Sk
+    if window is None:                    # every chunk reads every key
+        k32, v32 = k.to(torch.float32), v.to(torch.float32)
+    rows = torch.arange(chunk, device=q.device)[:, None]
+    outs = []
+    for c0 in range(0, Sq, chunk):
+        if window is None:
+            start, ks, vs = 0, k32, v32
+        else:
+            start = min(max(c0 + chunk - kwin, 0), Sk - kwin)
+            ks = k[:, :, start:start + kwin].to(torch.float32)
+            vs = v[:, :, start:start + kwin].to(torch.float32)
+        qi = qg[:, :, :, c0:c0 + chunk].to(torch.float32)
+        logits = torch.einsum("bhgqd,bhkd->bhgqk", qi, ks) * scale
+        q_pos = c0 + rows
+        k_pos = start + torch.arange(kwin, device=q.device)[None, :]
+        mask = torch.ones((chunk, kwin), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window is not None:
+            mask &= (q_pos - k_pos) < window
+        probs = torch.softmax(logits.masked_fill_(~mask, NEG_INF), dim=-1)
+        del logits
+        outs.append(torch.einsum("bhgqk,bhkd->bhgqd", probs, vs).to(q.dtype))
+        del probs
+    return torch.cat(outs, dim=3).reshape(B, Hq, Sq, D)
+
+
 def flash_attention_fwd_torch(q, k, v, *, causal=True, sm_scale=None,
                               window=None):
     """Plain version of the flash-attention forward kernel: (o, lse).
@@ -289,7 +341,7 @@ def flash_attention_bwd_torch(q, k, v, o, lse, do, *, causal=True,
     return dq, dk, dv
 
 
-__all__ = ["NEG_INF", "attention_ref", "copyscore_fused_torch",
-           "flash_attention_bwd_dkv_torch", "flash_attention_bwd_dq_torch",
-           "flash_attention_bwd_torch", "flash_attention_fwd_torch",
-           "tile_scores_torch"]
+__all__ = ["NEG_INF", "attention_chunked", "attention_ref",
+           "copyscore_fused_torch", "flash_attention_bwd_dkv_torch",
+           "flash_attention_bwd_dq_torch", "flash_attention_bwd_torch",
+           "flash_attention_fwd_torch", "tile_scores_torch"]

@@ -14,19 +14,17 @@ corpus's content-hashed spans (``data/fusion_weights.py``, on the same
 device) and samples documents by the source and duplication weights it
 derives. ``--arch falcon-mamba-7b`` and ``--arch hymba-1.5b`` train the
 SSM block kinds through the chunk-checkpointed scan
-(``models/mamba.py:SelectiveScan``); falcon-mamba-7b's 64 layers with
-AdamW need ~116 GB of parameters and optimizer state, more than one
-80 GB card holds, until a factored optimizer is ported (ROADMAP A.7).
-``--arch gemma-2b`` (head_dim 256) and ``--arch phi3.5-moe-42b-a6.6b``
-(the ``moe`` kind) train like the others. Two archs raise before anything
-is built: grok-1-314b, whose config names the ``adafactor`` optimizer that
-the port lacks (``NotImplementedError``; like JAX's CLI, this one has no
-flag that picks another), and the conditioned archs (musicgen-large,
-llama-3.2-vision-11b: ``ValueError``), whose ``cond`` comes from a
-conditioning frontend (an EnCodec/T5 or vision encoder) that neither
-package has: JAX's CLI feeds no ``cond`` either and fails inside its
-cross attention (ROADMAP C21). A ``cross`` model trains through
-``runtime.train`` with batches that carry ``cond``.
+(``models/mamba.py:SelectiveScan``); ``--arch gemma-2b`` (head_dim 256)
+and ``--arch phi3.5-moe-42b-a6.6b`` (the ``moe`` kind) train like the
+others. The optimizer is the config's: AdamW, or Adafactor for
+grok-1-314b (``optim/adafactor.py``; like JAX's CLI, this one has no
+flag that picks another). The conditioned archs (musicgen-large,
+llama-3.2-vision-11b) raise ``ValueError`` before anything is built:
+their ``cond`` comes from a conditioning frontend (an EnCodec/T5 or
+vision encoder) that neither package has, and JAX's CLI feeds no
+``cond`` either and fails inside its cross attention (ROADMAP C21). A
+``cross`` model trains through ``runtime.train`` with batches that carry
+``cond``.
 """
 from __future__ import annotations
 

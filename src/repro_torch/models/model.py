@@ -200,8 +200,9 @@ def params_from_jax(tree, device=None):
 
 
 def train_state_from_jax(state, device=None):
-    """The JAX package's train state ``{params, opt: {m, v[, master]},
-    step}`` (leaves through ``np.asarray``) as the port's on ``device``:
+    """The JAX package's train state ``{params, opt, step}`` (``opt`` is
+    AdamW's ``{m, v[, master]}`` or Adafactor's ``{f[, master]}``; leaves
+    through ``np.asarray``) as the port's on ``device``:
     the same trees, dtypes and values, with ``step`` an int64 scalar."""
     dev = resolve_device(device)
     return {"params": params_from_jax(state["params"], dev),

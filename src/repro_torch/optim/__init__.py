@@ -1,25 +1,22 @@
-"""Optimizers and schedules of the port: AdamW, the warmup-cosine schedule
-and global-norm clipping. ``adafactor`` waits (ROADMAP A.7): it is what
-would train falcon-mamba-7b at full depth on one card, where AdamW's
-float32 parameters, gradients and two moments of 7.27 B parameters (16
-bytes a parameter, 116 GB) exceed 80 GB; its port needs an update that
-never makes a whole-leaf float32 temporary of a stacked leaf."""
+"""Optimizers and schedules of the port: AdamW, Adafactor (the factored
+second moment that trains falcon-mamba-7b at full depth on one card and
+that grok-1-314b's config names), the warmup-cosine schedule and
+global-norm clipping."""
+from repro_torch.optim.adafactor import adafactor, adafactor_ref
 from repro_torch.optim.adamw import Optimizer, adamw
 from repro_torch.optim.schedule import clip_by_global_norm, warmup_cosine
 
-OPTIMIZERS = {"adamw": adamw}
+OPTIMIZERS = {"adamw": adamw, "adafactor": adafactor}
 
 
 def get_optimizer(name: str):
-    """The optimizer factory of ``OPTIMIZERS`` named ``name``; a name of the
-    JAX package's that the port lacks (``adafactor``, grok-1-314b's) raises
-    ``NotImplementedError``."""
+    """The optimizer factory of ``OPTIMIZERS`` named ``name``; an unknown
+    name raises ``KeyError``."""
     if name not in OPTIMIZERS:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported (ROADMAP A.7: Adafactor comes "
-            f"with a later slice); the port has {sorted(OPTIMIZERS)}")
+        raise KeyError(f"unknown optimizer {name!r}; the port has "
+                       f"{sorted(OPTIMIZERS)}")
     return OPTIMIZERS[name]
 
 
-__all__ = ["OPTIMIZERS", "Optimizer", "adamw", "clip_by_global_norm",
-           "get_optimizer", "warmup_cosine"]
+__all__ = ["OPTIMIZERS", "Optimizer", "adafactor", "adafactor_ref", "adamw",
+           "clip_by_global_norm", "get_optimizer", "warmup_cosine"]

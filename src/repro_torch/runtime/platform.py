@@ -1,0 +1,104 @@
+"""Per-device pipeline autotuning for launch and benchmarks.
+
+The port of the JAX package's ``runtime/platform.py``, its autotuning half.
+The best (tile edge, chunk_group) point of the tiled engine
+(``core/engine.py:EngineOptions``) depends on the device (the CPU wants
+cache-sized groups, the card dispatch-amortizing ones), so ``autotune``
+sweeps a caller-provided timing function over a small grid once and caches
+the winner in ``<cache_dir>/<device key>.json``; ``load_autotune`` lets
+later runs adopt it without sweeping again.
+
+The JAX package names the cache file by ``jax.default_backend()``; the port
+names it by the device the engine runs on (``device_key``): ``cpu``, or
+``cuda-sm<major><minor>`` from the card's compute capability, so
+``cuda-sm90`` on an H100. The JSON layout is JAX's: ``backend`` (the key),
+``tile``, ``chunk_group``, ``wall_s`` and ``sweep``.
+
+Not ported: ``set_platform`` and ``set_host_device_count`` write XLA flags
+read when JAX's backend starts. They have no torch counterpart: the port
+picks its device per entry point through ``utils.device.resolve_device``.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Callable, Iterable, Optional
+
+import torch
+
+from repro_torch.utils.device import resolve_device
+
+#: Default location of the per-device autotune cache (relative to cwd).
+AUTOTUNE_DIR = ".autotune"
+
+
+def device_key(device=None) -> str:
+    """``cpu``, or ``cuda-sm<major><minor>`` for a card (``None`` is the
+    card, through ``resolve_device``)."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return dev.type
+    major, minor = torch.cuda.get_device_capability(dev)
+    return f"cuda-sm{major}{minor}"
+
+
+def _cache_path(cache_dir: str, device) -> str:
+    """Per-device cache file: CPU and card winners never collide."""
+    return os.path.join(cache_dir, f"{device_key(device)}.json")
+
+
+def load_autotune(cache_dir: str = AUTOTUNE_DIR, device=None) -> Optional[dict]:
+    """Return the cached winner for ``device``, or None.
+
+    The dict carries ``tile``, ``chunk_group``, ``wall_s`` and the full
+    ``sweep`` it won (see ``autotune``). Corrupt/partial cache files read
+    as None: the caller just falls back to defaults.
+    """
+    try:
+        with open(_cache_path(cache_dir, device)) as f:
+            out = json.load(f)
+        if "tile" in out and "chunk_group" in out:
+            return out
+    except (OSError, ValueError):
+        pass
+    return None
+
+
+def autotune(
+    run_fn: Callable[[int, int], float],
+    tiles: Iterable[int] = (128, 256),
+    groups: Iterable[int] = (1, 2),
+    cache_dir: str = AUTOTUNE_DIR,
+    force: bool = False,
+    device=None,
+) -> dict:
+    """Sweep ``run_fn(tile, chunk_group) → wall seconds``; cache the winner.
+
+    A deliberately small grid: the knobs interact with the device's memory
+    hierarchy, not with correctness (every point produces bit-identical
+    decisions), so a handful of timed points per device suffices. Returns
+    ``{"backend", "tile", "chunk_group", "wall_s", "sweep": [...]}`` and
+    persists it at ``<cache_dir>/<device key>.json`` unless an existing
+    cache already answers (``force=True`` sweeps again).
+    """
+    if not force:
+        cached = load_autotune(cache_dir, device)
+        if cached is not None:
+            return cached
+    sweep = []
+    for tile in tiles:
+        for group in groups:
+            wall = float(run_fn(int(tile), int(group)))
+            sweep.append({"tile": int(tile), "chunk_group": int(group),
+                          "wall_s": round(wall, 4)})
+    best = min(sweep, key=lambda r: r["wall_s"])
+    out = {"backend": device_key(device), "tile": best["tile"],
+           "chunk_group": best["chunk_group"], "wall_s": best["wall_s"],
+           "sweep": sweep}
+    os.makedirs(cache_dir, exist_ok=True)
+    with open(_cache_path(cache_dir, device), "w") as f:
+        json.dump(out, f, indent=2)
+    return out
+
+
+__all__ = ["AUTOTUNE_DIR", "autotune", "device_key", "load_autotune"]

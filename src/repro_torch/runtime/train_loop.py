@@ -151,9 +151,10 @@ def train(
     per completed step with its step, seconds (host clock, ending when the
     step's metrics reach the host) and metrics. Batches of a model with
     ``cross`` layers carry ``cond`` (B, cond_len, cond_dim), with a leading
-    micro-batch dimension under ``grad_accum`` as every leaf has. An
-    optimizer the port lacks (grok-1-314b's ``adafactor``) raises
-    ``NotImplementedError`` before anything is built."""
+    micro-batch dimension under ``grad_accum`` as every leaf has. The
+    optimizer is ``optimizer_name``, else the config's (``adamw``, or
+    ``adafactor`` for grok-1-314b); an unknown name raises ``KeyError``
+    before anything is built."""
     optimizer = get_optimizer(optimizer_name or model.cfg.optimizer)()
     lr_fn = warmup_cosine(peak_lr, warmup, steps)
     step_fn = make_train_step(model, optimizer, lr_fn, grad_accum=grad_accum)

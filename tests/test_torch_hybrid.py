@@ -48,7 +48,7 @@ from repro_torch.configs import (
 from repro_torch.kernels import ops
 from repro_torch.launch.train import main as train_main
 from repro_torch.models import Model, greedy_decode, params_from_jax
-from repro_torch.runtime import Request, ServeLoop
+from repro_torch.runtime import Request, ServeLoop, train
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 REDUCED = dict(d_model=256, d_ff=256, vocab=128)
@@ -402,12 +402,14 @@ def test_train_cli_trains_the_ssm_kinds(arch):
 
 
 def test_unported_kinds_still_raise():
-    """The train CLI refuses, before it builds anything, what it cannot
-    train: grok-1's ``adafactor`` optimizer (not ported, ROADMAP A.7) and
-    a conditioned arch, whose cond no frontend makes (C21)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        train_main(["--arch", "grok-1-314b", "--reduced", "--device", "cpu",
-                    "--steps", "1"])
+    """What the port cannot train raises before anything is built: an
+    optimizer name it does not have (``runtime.train``), and in the train
+    CLI a conditioned arch, whose cond no frontend makes (C21). grok-1's
+    ``adafactor`` trains (``tests/test_torch_xtrain.py``)."""
+    cfg = get_config("hymba-1.5b").reduced(d_model=256)
+    with pytest.raises(KeyError, match="unknown optimizer"):
+        train(Model(cfg, device="cpu"), iter([]), steps=1,
+              optimizer_name="lion")
     with pytest.raises(ValueError, match="conditioning frontend"):
         train_main(["--arch", "musicgen-large", "--reduced", "--device", "cpu",
                     "--steps", "1"])

@@ -15,11 +15,11 @@ kernel is not finite below one 128-key block, which the cross attention's
 8 keys are (C18). Under ``remat`` the layers are recomputed and route
 alike, so the gradients do not move. Three AdamW steps equal JAX's
 ``make_train_step``, also with ``grad_accum`` 2 and ``cond`` sliced with
-the micro-batches. The train CLI trains phi; it refuses grok (its
-``adafactor`` optimizer is not ported) and the conditioned archs (no
-conditioning frontend; JAX's CLI feeds no ``cond`` either and fails, C21,
-shown on JAX's side); ``runtime.train`` trains musicgen on batches that
-carry ``cond``.
+the micro-batches. The train CLI trains phi, and grok through its own
+optimizer (Adafactor); it refuses the conditioned archs (no conditioning
+frontend; JAX's CLI feeds no ``cond`` either and fails, C21, shown on
+JAX's side); ``runtime.train`` trains musicgen on batches that carry
+``cond``, and grok with Adafactor.
 
 Configuration: ``reduced(d_model=256, d_ff=256, vocab=128)``: 4 query
 heads of 64 (2 kv heads where the config has GQA), 4 experts top-2,
@@ -216,8 +216,11 @@ def test_train_cli_trains_moe_and_refuses_what_it_cannot_feed():
                                  "--steps", "2", "--batch", "2", "--seq", "32"])
     assert int(state["step"]) == 2 and len(history) == 2
     assert all(np.isfinite(h["loss"]) for h in history)
-    with pytest.raises(NotImplementedError, match="adafactor.*ROADMAP A.7"):
-        train_main(["--arch", GROK, "--reduced", "--device", "cpu", "--steps", "1"])
+    state, history = train_main(["--arch", GROK, "--reduced", "--device", "cpu",
+                                 "--steps", "2", "--batch", "2", "--seq", "32"])
+    assert int(state["step"]) == 2 and len(history) == 2
+    assert all(np.isfinite(h["loss"]) for h in history)
+    assert set(state["opt"]) == {"f"}               # Adafactor's factors
     for arch in (MUSICGEN, VISION):
         with pytest.raises(ValueError, match="conditioning frontend"):
             train_main(["--arch", arch, "--reduced", "--device", "cpu",
@@ -237,8 +240,8 @@ def test_jax_cli_path_fails_without_cond():
 
 def test_runtime_train_takes_batches_with_cond():
     """musicgen through ``runtime.train`` (AdamW, the port's default warmup),
-    each batch with a cond: two steps, finite losses; grok's optimizer is
-    refused before anything is built."""
+    each batch with a cond: two steps, finite losses; grok through its
+    config's optimizer, Adafactor: one step, a finite loss."""
     _, _, tcfg = _pair("musicgen")
     batches = iter([_torch(_batch(tcfg, 20 + i, 2, 32)) for i in range(2)])
     state, history = train(Model(tcfg, device="cpu"), batches, steps=2,
@@ -246,6 +249,7 @@ def test_runtime_train_takes_batches_with_cond():
     assert int(state["step"]) == 2
     assert all(np.isfinite(h["loss"]) for h in history)
     _, _, gcfg = _pair("grok")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        train(Model(gcfg, device="cpu"),
-              iter([]), steps=1)
+    state, history = train(Model(gcfg, device="cpu"),
+                           iter([_torch(_batch(gcfg, 30, 2, 32))]), steps=1,
+                           log_every=0)
+    assert "f" in state["opt"] and np.isfinite(history[0]["loss"])
