@@ -13,15 +13,18 @@ engine's other modes (``bound``, ``bound+``, ``hybrid``, ``incremental``,
 ``sampled``, ``sample_verify``), the
 full-square and per-tile copyscore (``repro_torch.kernels.ops.copyscore_store``,
 ``copyscore_tile``), the index's commit/retract path, the row-range shard
-plane with the engine's shard-owner fan-out, the LM serving path
+plane with the engine's shard-owner fan-out, the tile mesh
+(``repro_torch.core.distributed``: the engine's scan over meshes of
+entries of this card, ``sharded_tile_scores_2d``,
+``distributed_pair_scores``), the LM serving path
 ``repro_torch.models.Model.prefill`` with
 ``repro_torch.runtime.ServeLoop`` (Llama-3.2-1B, falcon-mamba-7b,
 hymba-1.5b, qwen2.5-3b, musicgen-large, phi3.5-moe and gemma-2b), and the
 LM training path ``repro_torch.runtime.train`` (Llama-3.2-1B, hymba-1.5b,
 falcon-mamba-7b with Adafactor, gemma-2b, musicgen-large and phi3.5-moe,
 and grok-1-314b through the train CLI) — and
-checks them phase by phase; any failure exits non-zero. Phases 18 and
-13–16 run right after phase 6, while the full pass's store is still in
+checks them phase by phase; any failure exits non-zero. Phases 18, 25
+and 13–16 run right after phase 6, while the full pass's store is still in
 memory; then phase 17 on a corpus of its own, phases 19 and 20, then
 phases 7–12, then phases 21–24.
 Phases:
@@ -306,7 +309,21 @@ Phases:
      against it by cosine, phi's loss held to the tokens every run routes
      alike; (e) each step-0 loss in a band about ln V + σ²/2 and the last
      step's loss below the first. B4's, B5's and B6's
-     ``launches_by_path`` add gemma's prefill and the three training runs.
+     ``launches_by_path`` add gemma's prefill and the three training runs;
+ 25. the tile mesh (after phase 18, on phase 5's prologue and scan), on
+     meshes whose entries are all ``cuda:0`` (set on the engines' lazily
+     built meshes: one card lists one device): (a) phase 5's scan on 4-,
+     1- and 3-entry meshes, the four grids equal to phase 5's bit for bit,
+     B1 launched once an entry and group; (b) the same scan on a 2×2
+     (data, pod) mesh (each one-chunk group padded with an inert chunk)
+     and one group of three chunks through ``sharded_tile_scores_2d``:
+     counts equal, scores within rtol 2e-5 / atol 1e-4; (c) at S=2048,
+     ``bucketed``, ``sampled`` and ``sample_verify`` on a 4-entry and a
+     2×2 mesh deciding as the one-entry card run, ``bucketed`` as the
+     exact INDEX, and ``DetectionEngine(devices=4)`` reporting the card's
+     one device; (d) ``distributed_pair_scores`` on 2×2 (data, model) and
+     2×1×2 (pod, data, model) meshes against the one-device product. B1's
+     ``launches_by_path`` add the phase's mesh launches.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -2316,6 +2333,242 @@ def phase_shard_modes(torch, np, dev, cfg) -> None:
         f"(unsharded, 2, 4 shards): " + "; ".join(
             f"{m} " + "/".join(f"{x:.2f}" for x in v)
             for m, v in seconds.items()))
+
+
+# the tile mesh (phase 25): meshes of entries of this one card, as the JAX
+# engine's are built (engine.mesh() / mesh2()); (a)'s entry counts, the 2-D
+# (data, pod) shape, the modes of (c) and (d)'s pair-product meshes
+MESH_SIZES = (4, 1, 3)
+MESH_2D = (2, 2)
+MESH_MODES = ("bucketed", "sampled", "sample_verify")
+MESH_PAIR_SHAPES = ((("data", "model"), (2, 2)),
+                    (("pod", "data", "model"), (2, 1, 2)))
+MESH_PAIR_BUCKETS = 16
+
+
+def _same_grids(torch, got, want, exact, what):
+    """Counts (grids 1, 2) equal; scores equal bit for bit or within
+    rtol 2e-5 / atol 1e-4 (C4)."""
+    for i, (name, a, b) in enumerate(zip(
+            ("C_same", "count", "non-Ē count", "error bound"), got, want)):
+        if exact or i in (1, 2):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: the {name} grid differs")
+        elif not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"{what}: the {name} grid is outside C4 "
+                                 f"(max |Δ| {(a - b).abs().max().item():.3e})")
+
+
+def phase_mesh(torch, np, dev, ops, cfg, card, ctx5, grids5) -> dict:
+    """Phase 25: the tile mesh on meshes whose entries are all this card.
+
+    One card lists one device, so the meshes are set on the engines'
+    lazily built ``_mesh`` / ``_mesh2`` (the JAX engine's
+    ``mesh()`` / ``mesh2()`` build theirs from ``jax.devices()`` the same
+    way), with no option the JAX engine lacks. (a) Phase 5's scan at S =
+    16384, rerun over its prologue ``ctx5`` through ``sharded_tile_scores``'s
+    dataflow (the engine's ``MeshTileScan``) on meshes of 4, 1 and 3
+    entries (3 pads the tile list): the four grids equal phase 5's
+    ``grids5`` bit for bit, B1 launched once an entry and group. (b) The
+    same scan on a 2×2 (data, pod) mesh — each one-chunk group padded with
+    an inert chunk to the pod —, and one group of three chunks through
+    ``sharded_tile_scores_2d`` against ``group_tile_scores`` on one entry:
+    counts exact, scores within C4. (c) At S = 2048 (phase 4's world),
+    ``bucketed``, ``sampled`` and ``sample_verify`` on a 4-entry and a 2×2
+    mesh decide as the one-entry card run, ``bucketed`` as the exact INDEX;
+    ``DetectionEngine(devices=4)`` reports the card's one device. (d)
+    ``distributed_pair_scores`` on 2×2 (data, model) and 2×1×2 (pod, data,
+    model) meshes against the one-device product: counts exact, C within
+    C4. Returns B1's launches and device ms on the mesh path.
+    """
+    from repro_torch.core import (
+        DetectionEngine,
+        build_index,
+        index_detect_exact,
+    )
+    from repro_torch.core.bucketed import _bucketed_accumulate, pad_buckets
+    from repro_torch.core.distributed import (
+        distributed_pair_scores,
+        group_tile_scores,
+        make_mesh,
+        sharded_tile_scores_2d,
+    )
+    from repro_torch.core.index import bucketize
+    from repro_torch.data.claims import (
+        SyntheticSpec,
+        oracle_claim_probs,
+        synthetic_claims,
+    )
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    # every entry is this card (the CPU in a rehearsal)
+    card0 = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    launches = 0
+    kernel_ms = 0.0
+
+    def scan(eng, what):
+        nonlocal launches, kernel_ms
+        ops.tile_scores.launches = 0
+        grids, _ = eng._run_tiled_scan(ctx5)
+        torch.cuda.synchronize()
+        st = eng._scan_stats
+        n = eng._tile_mesh().size
+        if (ops.tile_scores.launches != n * st["groups_run"]
+                or not st["groups_run"]):
+            raise AssertionError(f"[25] {what}: B1 launches "
+                                 f"{ops.tile_scores.launches} != {n} entries "
+                                 f"× {st['groups_run']} groups")
+        launches += ops.tile_scores.launches
+        kernel_ms += st["scan_kernel_ms"]
+        return grids, st
+
+    # -- (a) the 1-D mesh at full size
+    for n in MESH_SIZES:
+        eng = DetectionEngine(cfg)
+        eng._mesh = make_mesh((n,), ("shards",), [card0] * n)
+        grids, st = scan(eng, f"{n}-entry mesh")
+        _same_grids(torch, grids, grids5, True, f"[25a] {n}-entry mesh")
+        log(f"[25a] S={ctx5.S} {n}-entry mesh of cuda:0: {ctx5.n_tiles} "
+            f"tiles in blocks of {-(-ctx5.n_tiles // n)}, the four grids == "
+            f"phase 5's bit for bit; {st['kernel_launches']} B1 launches, "
+            f"scan {st['scan_s']:.3f} s, B1 device time "
+            f"{st['scan_kernel_ms']:.3f} ms, staging {st['staging_s']:.3f} "
+            f"s ({card})")
+        del grids, eng
+        torch.cuda.empty_cache()
+
+    # -- (b) the 2-D (data, pod) mesh at full size
+    eng = DetectionEngine(cfg, mesh_shape=MESH_2D)
+    eng._mesh2 = make_mesh(MESH_2D, ("data", "pod"), [card0] * 4)
+    grids, st = scan(eng, "2x2 mesh")
+    _same_grids(torch, grids, grids5, False, "[25b] 2x2 mesh")
+    log(f"[25b] S={ctx5.S} 2x2 (data, pod) mesh of cuda:0, {ctx5.Gc} chunk "
+        f"a group padded to the pod with inert chunks: counts equal, scores "
+        f"within C4 of phase 5's; {st['kernel_launches']} B1 launches, scan "
+        f"{st['scan_s']:.3f} s, B1 device time {st['scan_kernel_ms']:.3f} ms "
+        f"({card})")
+    del grids
+    torch.cuda.empty_cache()
+    groups = eng._scan_groups(ctx5)
+    ks = [k for g, _ in groups for k in g][:3]
+    gmask = ctx5.chunk_keep[ks][:, ctx5.coords[:, 0], ctx5.coords[:, 1]].any(0)
+    coords = np.where(gmask[:, None], ctx5.coords, -1).astype(np.int32)
+    store = ctx5.ech.store
+    v = torch.stack([torch.from_numpy(store.chunks[k]) for k in ks],
+                    dim=1).to(dev)
+    acc = torch.from_numpy(ctx5.acc_pad).to(dev)
+    meta = [torch.from_numpy(np.ascontiguousarray(x[ks])).to(dev)
+            for x in (ctx5.ech.p_hat, ctx5.delta, ctx5.ech.nout)]
+    want = [torch.zeros((len(coords), ctx5.T, ctx5.T), device=dev)
+            for _ in range(5)]
+    group_tile_scores(v, acc, *meta, torch.from_numpy(coords).to(dev), want,
+                      cfg, tile=ctx5.T)
+    ops.tile_scores.launches = 0
+    got = sharded_tile_scores_2d(
+        eng.mesh2(), v, ctx5.acc_pad, ctx5.ech.p_hat[ks], coords, cfg,
+        tile=ctx5.T, delta=ctx5.delta[ks], nout=ctx5.ech.nout[ks])
+    torch.cuda.synchronize()
+    if ops.tile_scores.launches != 4:
+        raise AssertionError(f"[25b] sharded_tile_scores_2d: "
+                             f"{ops.tile_scores.launches} B1 launches != 4")
+    launches += ops.tile_scores.launches
+    n_t = len(coords)
+    worst = 0.0
+    for c in range(5):
+        a, b = got[c][:n_t], want[c]
+        if c in (2, 3):
+            if not torch.equal(a, b):
+                raise AssertionError("[25b] 3-chunk group: counts differ")
+        else:
+            worst = max(worst, (a - b).abs().max().item())
+            if not torch.allclose(a, b, rtol=RTOL, atol=ATOL):
+                raise AssertionError("[25b] 3-chunk group: scores outside C4")
+    log(f"[25b] chunks {ks} as one group through sharded_tile_scores_2d on "
+        f"the 2x2 mesh (2 + 1 chunks and an inert one over the pod): counts "
+        f"equal, max |Δ| scores {worst:.3e} against group_tile_scores on one "
+        f"entry ({card})")
+    del v, acc, meta, want, got, eng
+    torch.cuda.empty_cache()
+
+    # -- (c) the engine at S = 2048
+    sc = synthetic_claims(SyntheticSpec(**WORLD_2048))
+    ds, p = sc.dataset, oracle_claim_probs(sc)
+    idx = build_index(ds, p, cfg, device=dev)
+    exact = index_detect_exact(ds, p, cfg, index=idx)
+    seconds = {}
+    for mode in MESH_MODES:
+        index = idx if mode == "bucketed" else None
+        t0 = time.perf_counter()
+        one = DetectionEngine(cfg, mode=mode).detect(ds, p, index=index)
+        seconds[mode] = [time.perf_counter() - t0]
+        if mode == "bucketed" and not np.array_equal(one.copying,
+                                                     exact.copying):
+            raise AssertionError("[25c] S=2048 bucketed, one entry: "
+                                 "decisions != exact INDEX")
+        for what in ("4 entries", "2x2"):
+            if what == "4 entries":
+                eng = DetectionEngine(cfg, mode=mode)
+                eng._mesh = make_mesh((4,), ("shards",), [card0] * 4)
+            else:
+                eng = DetectionEngine(cfg, mode=mode, mesh_shape=MESH_2D)
+                eng._mesh2 = make_mesh(MESH_2D, ("data", "pod"), [card0] * 4)
+            ops.tile_scores.launches = 0
+            t0 = time.perf_counter()
+            res = eng.detect(ds, p, index=index)
+            seconds[mode].append(time.perf_counter() - t0)
+            launches += ops.tile_scores.launches
+            st = eng.last_stats.get("sampled_stats", eng.last_stats)
+            kernel_ms += st["scan_kernel_ms"]
+            if st["n_devices"] != 4 or not ops.tile_scores.launches:
+                raise AssertionError(f"[25c] S=2048 {mode} {what}: "
+                                     f"n_devices {st['n_devices']}, "
+                                     f"{ops.tile_scores.launches} launches")
+            if not np.array_equal(res.copying, one.copying):
+                raise AssertionError(f"[25c] S=2048 {mode} on {what}: "
+                                     f"decisions differ from one entry")
+    eng = DetectionEngine(cfg, devices=4)
+    res = eng.detect(ds, p, index=idx)
+    n_cards = min(4, torch.cuda.device_count())
+    if (eng.last_stats["n_devices"] != n_cards
+            or not np.array_equal(res.copying, exact.copying)):
+        raise AssertionError(f"[25c] devices=4: n_devices "
+                             f"{eng.last_stats['n_devices']} != {n_cards}, "
+                             f"or decisions != exact INDEX")
+    log(f"[25c] S={ds.n_sources} on 4-entry and 2x2 meshes of cuda:0: "
+        f"{', '.join(MESH_MODES)} decide as the one-entry card run, bucketed "
+        f"as the exact INDEX ({len(exact.copying_pairs())} copying pairs); "
+        f"devices=4 reports n_devices {n_cards}; seconds (one entry, 4, "
+        f"2x2): " + "; ".join(f"{m} " + "/".join(f"{x:.3f}" for x in v)
+                              for m, v in seconds.items()) + f" ({card})")
+
+    # -- (d) distributed_pair_scores
+    pb = pad_buckets(bucketize(idx, MESH_PAIR_BUCKETS), device=dev)
+    c_ref, n_ref, _ = _bucketed_accumulate(
+        pb.v_ksw, pb.p_hat, ds.accuracy, cfg.s, cfg.n, pb.ebar_bucket)
+    for axes, shape in MESH_PAIR_SHAPES:
+        mesh = make_mesh(shape, axes, [card0] * int(np.prod(shape)))
+        t0 = time.perf_counter()
+        c, n = distributed_pair_scores(mesh, pb.v_ksw, pb.p_hat, ds.accuracy,
+                                       cfg)()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not torch.equal(n, n_ref):
+            raise AssertionError(f"[25d] {shape}: counts differ")
+        if not torch.allclose(c, c_ref, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"[25d] {shape}: C_same outside C4")
+        log(f"[25d] distributed_pair_scores on a {'x'.join(map(str, shape))} "
+            f"({', '.join(axes)}) mesh of cuda:0, S={ds.n_sources}, "
+            f"K={pb.v_ksw.shape[0]}, w={pb.width}: counts equal, max |Δ| C "
+            f"{(c - c_ref).abs().max().item():.3e} against the one-device "
+            f"product, {dt:.3f} s ({card})")
+    del pb, c_ref, n_ref, c, n
+    seconds_phase = time.perf_counter() - t_phase
+    log(f"[25] B1 on the mesh path: {launches} launches, device "
+        f"{kernel_ms:.3f} ms; phase 25 {seconds_phase:.1f} s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB ({card})")
+    return {"launches": launches, "device_ms": kernel_ms,
+            "seconds": seconds_phase}
 
 
 def _pairs_of(np, copying):
@@ -4624,6 +4877,12 @@ def main() -> int:
     # comparison with the owners' merge
     grids5, _ = eng._run_tiled_scan(ctx)
     sharded = phase_shards(torch, np, dev, ops, cfg, ds, p, ctx, grids5)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 25. the tile mesh on entries of this card ----------------------------
+    marks.append(("25", time.perf_counter()))
+    mesh = phase_mesh(torch, np, dev, ops, cfg, card, ctx, grids5)
     del grids5
     gc.collect()
     torch.cuda.empty_cache()
@@ -4751,10 +5010,11 @@ def main() -> int:
         "max_abs_err": max(rec["max_abs_err"], worst_single[name]),
         "library_ms": None,
     } for name, line, rec in (("copyscore_err", 89, b2), ("copyscore", 67, b3))]
-    # B1's launches: the full pass's, the sharded fan-out's, the service's
-    # and truth finding's, added
+    # B1's launches: the full pass's, the sharded fan-out's, the tile
+    # mesh's, the service's and truth finding's, added
     b1["launches_by_path"] = {"bucketed pass (phase 5)": b1_pass,
                               "owner fan-out (phase 18)": sharded["launches"],
+                              "tile mesh (phase 25)": mesh["launches"],
                               "detection service (phase 19)":
                                   service["launches"],
                               "truth finding (phase 20)": truth["launches"]}

@@ -4,7 +4,12 @@ Public API (the slice ported so far):
   CopyConfig, ClaimsDataset, DetectionResult    — data model
   DetectionEngine, EngineOptions                — THE detection entry point
                                                   (all nine modes of the JAX
-                                                  engine, on one device)
+                                                  engine, the tile scan over
+                                                  a device mesh)
+  Mesh, make_mesh, sharded_tile_scores,
+  sharded_tile_scores_2d,
+  distributed_pair_scores                       — the tile mesh (1-D, data×pod)
+                                                  and the 2-D pair product
   pairwise_detect                               — exhaustive baseline (§II-B)
   bound_detect, hybrid_detect, BoundState       — BOUND/BOUND+/HYBRID (§IV)
   make_incremental_state, incremental_detect,
@@ -34,7 +39,7 @@ Public API (the slice ported so far):
   ReplicaRouter, CircuitBreaker,
   ReplicaBroadcastError                         — replica / shard-owner fleet
   ServiceOverloaded, DeadlineExceeded,
-  ServiceStopped, MeshNotPortedError            — typed service refusals
+  ServiceStopped                                — typed service refusals
   DurabilityOptions, CommitLog, CommitRecord,
   RetractRecord, RestoreInfo,
   NoValidSnapshotError, ReplayDivergenceError   — commit log and snapshots
@@ -46,6 +51,13 @@ from repro_torch.core.bucketed import (
     bucketed_index_detect,
     index_detect_exact,
     pad_buckets,
+)
+from repro_torch.core.distributed import (
+    Mesh,
+    distributed_pair_scores,
+    make_mesh,
+    sharded_tile_scores,
+    sharded_tile_scores_2d,
 )
 from repro_torch.core.engine import DetectionEngine, EngineOptions
 from repro_torch.core.fagin import fagin_input
@@ -80,7 +92,6 @@ from repro_torch.core.serving import (
     DetectionService,
     DetectRequest,
     DetectResponse,
-    MeshNotPortedError,
     ReplicaBroadcastError,
     ReplicaRouter,
     ResidentCorpus,
@@ -131,7 +142,9 @@ from repro_torch.core.wal import (
 
 __all__ = [
     "CopyConfig", "ClaimsDataset", "DetectionResult", "pair_f_measure",
-    "claim_value_keys", "DetectionEngine", "EngineOptions", "CorpusStore",
+    "claim_value_keys", "DetectionEngine", "EngineOptions", "Mesh",
+    "make_mesh", "sharded_tile_scores", "sharded_tile_scores_2d",
+    "distributed_pair_scores", "CorpusStore",
     "InvertedIndex", "pairwise_detect", "build_index", "engine_chunks",
     "index_detect_exact", "rescore_pairs_exact", "StoreSnapshot",
     "BucketedIndex", "bucketize", "bucketize_engine", "CommitInfo",
@@ -149,7 +162,7 @@ __all__ = [
     "DetectionService", "ReplicaRouter", "ReplicaBroadcastError",
     "ResidentCorpus", "ResultCache", "serve_batch", "CircuitBreaker",
     "DeadlineExceeded", "ServiceOverloaded", "ServiceStopped",
-    "MeshNotPortedError", "DurabilityOptions", "CommitLog", "CommitRecord",
+"DurabilityOptions", "CommitLog", "CommitRecord",
     "RestoreInfo", "NoValidSnapshotError", "ReplayDivergenceError",
     "RetractRecord", "truth_finding", "fusion_accuracy", "fagin_input",
 ]

@@ -1,8 +1,8 @@
-"""DetectionEngine — the entry point for copy detection, on one device.
+"""DetectionEngine — the entry point for copy detection.
 
 Every mode of the JAX package's engine runs here, on the card or (with
 ``device="cpu"``) on the CPU. The production ``bucketed`` mode is the
-pair-tiled dataflow of the JAX package's engine, on one card:
+pair-tiled dataflow of the JAX package's engine:
 
   1. build the inverted index (host numpy, streamed into the chunked
      ``CorpusStore``; the O(S²·D) ``l_counts`` product on the device) and
@@ -18,8 +18,9 @@ pair-tiled dataflow of the JAX package's engine, on one card:
      the ``ChunkPrefetcher``: a producer thread fills pinned slabs of a
      ``SlabRing`` ``prefetch_depth`` groups ahead and uploads them on a side
      stream while the fused dual-direction copyscore kernel runs, once per
-     group, over the whole surviving tile list; the five per-tile channels
-     accumulate in device stacks across groups;
+     group and mesh entry, over the entry's block of the surviving tile
+     list; the five per-tile channels accumulate in device stacks across
+     groups;
   4. scatter both orientations of every tile into (S, S) device grids,
      apply the INDEX step-3 different-value adjustment, exactly rescore
      every pair whose decision margin is within its accumulated error
@@ -51,8 +52,16 @@ unsharded scan's, so at equal chunk groups the grids are bit-equal, and
 decisions equal the unsharded engine's. ``owner_scan_context`` /
 ``detect_owner_partial`` / ``finalize_owner_partials`` split that scan into
 one call per owner and a merge (the fan-out a shard-owner router drives).
-The multi-card tile mesh of the JAX engine (``devices``, ``mesh_shape``) is
-not carried yet (ROADMAP A.3b).
+The tile mesh (``devices``, ``mesh_shape``, ``core/distributed.py``): the
+scan of every tiled mode runs over ``mesh()`` — the first ``devices`` of
+``runtime.platform.local_devices(device)``, all of them by default: every
+card, or the CPU entries ``set_host_device_count`` lists — or, with
+``mesh_shape=(data, pod)``, over ``mesh2()``, tiles over ``data`` and each
+group's chunks over ``pod``. Each surviving tile is scanned by one entry
+(by one data member's pod members), the entries' stacks are gathered on the
+mesh's first device and scattered there; on a 1-D mesh the grids are
+bit-equal to the one-entry scan's. Row-range shards compose with it: every
+owner's scan runs over the mesh. One process drives every device.
 """
 from __future__ import annotations
 
@@ -66,7 +75,12 @@ import torch
 from repro_torch.core import tilecache
 from repro_torch.core.bound import bound_detect
 from repro_torch.core.bucketed import index_detect_exact
-from repro_torch.core.distributed import group_tile_scores
+from repro_torch.core.distributed import (
+    Mesh,
+    MeshTileScan,
+    group_tile_scores,
+    make_mesh,
+)
 from repro_torch.core.incremental import (
     dataset_tensors,
     incremental_detect,
@@ -99,6 +113,7 @@ from repro_torch.core.shardplan import (
 from repro_torch.core.store import CorpusStore
 from repro_torch.core.types import ClaimsDataset, CopyConfig, DetectionResult
 from repro_torch.kernels.ops import tile_scores
+from repro_torch.runtime.platform import local_devices
 from repro_torch.utils.counters import ComputeCounter
 from repro_torch.utils.device import resolve_device
 
@@ -116,6 +131,9 @@ class EngineOptions:
     # pair-tile edge (sources per tile side); clamped down for tiny datasets
     # (see _tile_edge).
     tile: int = 256
+    # 1-D tile-mesh size (device count); None → every local device of the
+    # engine's platform (runtime.platform.local_devices).
+    devices: Optional[int] = None
     # decision-margin band (log-odds units) around z = 0 that triggers an
     # exact rescore on top of the accumulated p̂-error bound.
     rescore_margin: float = 1.0
@@ -186,6 +204,10 @@ class EngineOptions:
     # directory under which each sealed store spills (in a fresh
     # subdirectory of its own); None → the system temp directory.
     shard_spill_dir: Optional[str] = None
+    # 2-D device mesh (data, pod) for the tile scan: tiles over `data`,
+    # each group's chunks over `pod`, summed over `pod` in a fixed order.
+    # None → the 1-D tile mesh.
+    mesh_shape: Optional[tuple] = None
 
 
 @dataclass
@@ -219,10 +241,12 @@ class TileScanContext:
 
 
 class DetectionEngine:
-    """One engine per detection workload, bound to one device.
+    """One engine per detection workload.
 
     ``device=None`` is the card; a missing card raises. Pass ``device="cpu"``
-    to run the plain PyTorch path on the CPU. Stateless for one-shot modes;
+    to run the plain PyTorch path on the CPU. The tile scan runs over the
+    engine's mesh (``mesh()`` / ``mesh2()``) of that platform's devices;
+    everything else runs on ``device``. Stateless for one-shot modes;
     ``incremental`` carries the paper's §V bookkeeping across ``detect``
     calls (``reset()`` drops it).
     """
@@ -239,6 +263,16 @@ class DetectionEngine:
             raise ValueError(
                 f"incidence_dtype {self.options.incidence_dtype!r}: only "
                 f"int8 incidence is carried ('auto' or 'int8')")
+        if self.options.mesh_shape is not None:
+            # a manifest carries it as a JSON list
+            self.options.mesh_shape = tuple(
+                int(x) for x in self.options.mesh_shape)
+            if len(self.options.mesh_shape) != 2:
+                raise ValueError(f"mesh_shape {self.options.mesh_shape}: "
+                                 f"expected (data, pod)")
+        # the tile meshes, built on first use (mesh(), mesh2())
+        self._mesh: Optional[Mesh] = None
+        self._mesh2: Optional[Mesh] = None
         self.last_stats: dict = {}
         self._scan_stats: dict = {}
         self._inc_state = None
@@ -261,6 +295,35 @@ class DetectionEngine:
     def incremental_state(self):
         """§V bookkeeping (None until an incremental detect() has run)."""
         return self._inc_state
+
+    def mesh(self) -> Mesh:
+        """The 1-D tile mesh: the first ``devices`` of
+        ``local_devices(device)``, all of them when ``devices`` is None or
+        more than exist (as ``jax.devices()[:n]``). Built on first use."""
+        if self._mesh is None:
+            devs = local_devices(self.device)
+            n = min(self.options.devices or len(devs), len(devs))
+            self._mesh = make_mesh((n,), ("shards",), devs)
+        return self._mesh
+
+    def mesh2(self) -> Mesh:
+        """The 2-D ``data``×``pod`` tile mesh (``mesh_shape``); raises
+        ``ValueError`` when it needs more devices than exist."""
+        if self._mesh2 is None:
+            d, p = self.options.mesh_shape
+            devs = local_devices(self.device)
+            if d * p > len(devs):
+                raise ValueError(
+                    f"mesh_shape {d}x{p} needs {d * p} devices, "
+                    f"{len(devs)} available")
+            self._mesh2 = make_mesh((d, p), ("data", "pod"), devs)
+        return self._mesh2
+
+    def _tile_mesh(self) -> Mesh:
+        """The mesh the tile scan runs over."""
+        if self.options.mesh_shape is not None:
+            return self.mesh2()
+        return self.mesh()
 
     # -- incremental tile-prune mask cache ----------------------------------
 
@@ -686,64 +749,81 @@ class DetectionEngine:
                     meta: torch.Tensor, coords: torch.Tensor,
                     tiles=None, runs=None) -> None:
         """Write one group's kernel operands into host tensors: the
-        (rows, Gc, w) int8 slab, the (3, Gc) per-chunk p̂ / δ / non-Ē rows
-        (inert 0.5 / 0 / 0 for the slots of a short group) and the tile
-        list (``tiles``, default every surviving tile) with chunk-pruned
-        tiles marked (-1, -1). ``runs`` lists the slab's row ranges as
-        (slab row, global row from, global row to) — a shard owner's
-        compact slab; None is the full S_pad rows. A plain ``CorpusStore``
-        chunk is copied as it is; a sharded one is assembled through the
-        facade straight into the slab."""
+        (pods, rows, Kp, w) int8 slab — chunk i of the group in slice
+        i // Kp, column i % Kp, the mesh's ``pod`` slices (one for a 1-D
+        mesh) —, the (pods, 3, Kp) per-chunk p̂ / δ / non-Ē rows (inert
+        0.5 / 0 / 0 for the slots past the group's chunks: a short group,
+        the ``pod`` padding) and the tile list (``tiles``, default every
+        surviving tile) with chunk-pruned tiles marked (-1, -1), followed
+        by (-1, -1) slots up to ``coords``' length (the mesh padding).
+        ``runs`` lists the slab's row ranges as (slab row, global row from,
+        global row to) — a shard owner's compact slab; None is the full
+        S_pad rows. A plain ``CorpusStore`` chunk is copied as it is; a
+        sharded one is assembled through the facade straight into the
+        slab."""
         ech = ctx.ech
         store = ech.store
         tiles = ctx.coords if tiles is None else tiles
+        kp = slab.shape[2]
         for i, k in enumerate(ks):
+            q, j = divmod(i, kp)
             if runs is None and isinstance(store, CorpusStore):
-                slab[:, i, :].copy_(torch.from_numpy(store.chunks[k]))
+                slab[q, :, j, :].copy_(torch.from_numpy(store.chunks[k]))
                 continue
-            dst = slab.numpy()[:, i, :]
+            dst = slab.numpy()[q, :, j, :]
             for o, r0, r1 in runs or ((0, 0, ctx.S_pad),):
                 store.assemble_rows(k, r0, r1, out=dst[o: o + r1 - r0])
-        if len(ks) < ctx.Gc:
-            slab[:, len(ks):, :] = 0            # inert chunks of a short group
-        meta[0] = 0.5
-        meta[1:] = 0.0
-        meta[0, : len(ks)] = torch.from_numpy(ech.p_hat[ks])
-        meta[1, : len(ks)] = torch.from_numpy(ctx.delta[ks])
-        meta[2, : len(ks)] = torch.from_numpy(ech.nout[ks])
-        coords.copy_(torch.from_numpy(
-            np.where(gmask[:, None], tiles, -1).astype(np.int32)))
+        m = meta.numpy()
+        m[:, 0] = 0.5
+        m[:, 1:] = 0.0
+        for i in range(len(ks), slab.shape[0] * kp):
+            q, j = divmod(i, kp)
+            slab[q, :, j, :] = 0                # inert chunks
+        for i, k in enumerate(ks):
+            q, j = divmod(i, kp)
+            m[q, :, j] = (ech.p_hat[k], ctx.delta[k], ech.nout[k])
+        n = len(tiles)
+        coords[:n] = torch.from_numpy(
+            np.where(gmask[:, None], tiles, -1).astype(np.int32))
+        coords[n:] = -1
 
     def _stage_group(self, ctx: TileScanContext, ks, gmask):
         """One group's kernel operands on the device, staged synchronously:
-        (slab, p̂, δ, non-Ē, tile list) — the scan's operands, for checks
-        outside the scan."""
-        slab = torch.empty((ctx.S_pad, ctx.Gc, ctx.ech.width),
+        (slab, p̂, δ, non-Ē, tile list) — the one-entry scan's operands, for
+        checks outside the scan."""
+        slab = torch.empty((1, ctx.S_pad, ctx.Gc, ctx.ech.width),
                            dtype=torch.int8)
-        meta = torch.empty((3, ctx.Gc), dtype=torch.float32)
+        meta = torch.empty((1, 3, ctx.Gc), dtype=torch.float32)
         coords = torch.empty((ctx.n_tiles, 2), dtype=torch.int32)
         self._fill_group(ctx, ks, gmask, slab, meta, coords)
         dev = self.device
-        return (slab.to(dev), meta[0].to(dev), meta[1].to(dev),
-                meta[2].to(dev), coords.to(dev))
+        return (slab[0].to(dev), meta[0, 0].to(dev), meta[0, 1].to(dev),
+                meta[0, 2].to(dev), coords.to(dev))
 
     def _stream_groups(self, ctx: TileScanContext, groups, tiles,
                        acc: np.ndarray, rows: int, runs=None):
         """Stream ``groups`` through the kernel over the tile list ``tiles``
         of a slab of ``rows`` rows (``runs`` as in ``_fill_group``) with
-        accuracies ``acc``: the groups are staged into a ``SlabRing`` of
-        ``prefetch_depth + 1`` slots by the ``ChunkPrefetcher``'s producer,
-        ``prefetch_depth`` groups ahead of the kernel. Returns the five
-        ``(len(tiles), T, T)`` device stacks, B1's device ms (CUDA events)
-        and the staging telemetry."""
+        accuracies ``acc``, on the engine's tile mesh: the groups are
+        staged into a ``SlabRing`` of ``prefetch_depth + 1`` slots by the
+        ``ChunkPrefetcher``'s producer, ``prefetch_depth`` groups ahead of
+        the kernels, and every mesh entry launches B1 on its share of each
+        group (``MeshTileScan``). Returns the five ``(len(tiles), T, T)``
+        stacks on the engine's device, B1's device ms (CUDA events, summed
+        over the cards) and the staging telemetry.
+
+        XLA's donation of a staged slab to the kernel (the JAX engine's
+        ``_donate_ok``) has no counterpart: the ring's slots are reused in
+        place, so no slab is allocated per group to donate."""
         dev = self.device
         T, n = ctx.T, len(tiles)
         depth = max(int(self.options.prefetch_depth), 0)
-        stacks = [torch.zeros((n, T, T), dtype=torch.float32, device=dev)
-                  for _ in range(5)]
-        acc_d = torch.from_numpy(np.ascontiguousarray(acc)).to(dev)
+        scan = MeshTileScan(self._tile_mesh(), n, T, acc)
+        kp = -(-ctx.Gc // scan.n_pod)
         ring = SlabRing(min(depth + 1, len(groups)),
-                        (rows, ctx.Gc, ctx.ech.width), ctx.Gc, n, dev)
+                        (scan.n_pod, rows, kp, ctx.ech.width),
+                        scan.n_padded, scan.places())
+        cards = [d for d in scan.mesh.distinct() if d.type == "cuda"]
 
         def stage(desc):
             g, ks, gmask = desc
@@ -760,16 +840,16 @@ class DetectionEngine:
                              stage, depth=depth)
         try:
             for slot in pf:
-                v, meta, coords_g = ring.use(slot)
-                if dev.type == "cuda":
-                    ev = (torch.cuda.Event(enable_timing=True),
-                          torch.cuda.Event(enable_timing=True))
-                    ev[0].record()
-                group_tile_scores(v, acc_d, meta[0], meta[1], meta[2],
-                                  coords_g, stacks, self.cfg, tile=T)
-                if dev.type == "cuda":
-                    ev[1].record()
-                    timed.append(ev)
+                slabs, metas, coords_g = ring.use(slot)
+                evs = [(d, torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True)) for d in cards]
+                for d, a, _ in evs:
+                    a.record(torch.cuda.current_stream(d))
+                scan.run_group(slabs, metas, coords_g, self.cfg,
+                               kernel=group_tile_scores)
+                for d, _, z in evs:
+                    z.record(torch.cuda.current_stream(d))
+                timed += evs
                 ring.release(slot)
         finally:
             ring.close()
@@ -780,9 +860,11 @@ class DetectionEngine:
                     "stage_wait_s": pf.stage_wait_s,
                     "compute_wait_s": pf.compute_wait_s + ring.slot_wait_s}
         kernel_ms = 0.0
+        for d in cards:
+            torch.cuda.synchronize(d)
         if timed:
-            torch.cuda.synchronize(dev)
-            kernel_ms = sum(a.elapsed_time(z) for a, z in timed)
+            kernel_ms = sum(a.elapsed_time(z) for _, a, z in timed)
+        stacks = [st[:n].to(dev) for st in scan.gather()]
         return stacks, kernel_ms, pipe
 
     def _run_tiled_scan(self, ctx: TileScanContext):
@@ -971,6 +1053,8 @@ class DetectionEngine:
             "tiles_pruned": ctx.tiles_total - ctx.n_tiles,
             "schedule": "triangular",
             "incidence_dtype": "int8",
+            "n_devices": (int(np.prod(opt.mesh_shape)) if opt.mesh_shape
+                          else self.mesh().shape["shards"]),
             "rescored_pairs": n_rescored,
             "chunks": ech.n_chunks,
             "chunk_width": ech.width,
@@ -1011,6 +1095,8 @@ class DetectionEngine:
                 "spill": st.spill_stats(),
                 "owner_scan_s": scan.get("owner_scan_s", []),
                 "merge_s": scan.get("merge_s", 0.0),
+                "mesh_shape": (list(opt.mesh_shape) if opt.mesh_shape
+                               else None),
             })
         return result
 

@@ -9,13 +9,17 @@ transfer hide behind group G's compute. It is the JAX package's prefetcher
 unchanged.
 
 ``SlabRing`` is what the port's stage function stages into: a few slots of
-(host slab, device slab), reused round robin. On the card the host slabs
-are pinned and each slot's upload runs on a side CUDA stream, so a staged
-slab is in flight while the previous group's kernel runs. A host slab is
-refilled only after its last upload has completed, and a device slab only
-after the kernel launch that read it (the side stream waits on an event
-recorded behind that launch). On the CPU the same slots are plain host
-tensors, which the kernel's plain version reads.
+(host slab, device slabs), reused round robin. A slot's host slab holds the
+group's chunks cut into the slices of a tile mesh's ``pod`` axis (one slice
+for a 1-D mesh), and each slice is placed once on every distinct device
+that reads it (``core/distributed.py:MeshTileScan.places``). On the card
+the host slabs are pinned and each slot's uploads run on a side CUDA stream
+of each device, so a staged slab is in flight while the previous group's
+kernels run. A host slab is refilled only after its last uploads have
+completed, and a device slab only after every kernel launch that read it
+(each device's side stream waits on an event recorded behind the launches
+on that device). On the CPU the device slabs are the host slices
+themselves, which the kernel's plain version reads.
 
 Telemetry (all wall seconds, accumulated across the pass):
 
@@ -169,44 +173,60 @@ class ChunkPrefetcher:
 class SlabRing:
     """``n`` staging slots of one pass, used round robin by group number.
 
-    Each slot holds an int8 slab of ``shape``, a (3, ``n_meta``) float32
-    metadata buffer and an (``n_coords``, 2) int32 tile list. The producer
-    calls ``acquire`` (blocks until the slot's last reader has launched),
-    fills ``host[i]``/``host_meta[i]``/``host_coords[i]`` and calls
-    ``upload``; the consumer calls ``use`` before the launch that reads the
-    slot and ``release`` right after it. ``slot_wait_s`` is the producer's
-    time blocked on a slot still in use (compute holding staging back).
+    Each slot holds an int8 slab of ``shape`` = (pods, rows, Kp, w): the
+    group's chunks in ``pods`` contiguous slices of Kp, a (pods, 3, Kp)
+    float32 metadata buffer (p̂, δ, non-Ē a slice) and an (``n_coords``, 2)
+    int32 tile list. ``places[p]`` lists the distinct devices that read
+    slice ``p``; the tile list goes to every device of ``places``. The
+    producer calls ``acquire`` (blocks until the slot's last readers have
+    launched), fills ``host[i]``/``host_meta[i]``/``host_coords[i]`` and
+    calls ``upload``; the consumer calls ``use`` before the launches that
+    read the slot and ``release`` right after them. ``slot_wait_s`` is the
+    producer's time blocked on a slot still in use (compute holding staging
+    back).
     """
 
-    def __init__(self, n: int, shape: tuple, n_meta: int, n_coords: int,
-                 device: torch.device):
+    def __init__(self, n: int, shape: tuple, n_coords: int, places: list):
         self.n = int(n)
-        self.device = device
-        self.cuda = device.type == "cuda"
-        pin = self.cuda
+        pods, _, kp, _ = shape
+        if len(places) != pods:
+            raise ValueError(f"{pods} slices need {pods} placements, got "
+                             f"{len(places)}")
+        self.places = [list(devs) for devs in places]
+        self.devices = []
+        for devs in self.places:
+            self.devices += [d for d in devs if d not in self.devices]
+        self.cuda = [d for d in self.devices if d.type == "cuda"]
+        pin = bool(self.cuda)
 
         def host(shape_, dtype):
             return [torch.empty(shape_, dtype=dtype, pin_memory=pin)
                     for _ in range(self.n)]
         self.host = host(shape, torch.int8)
-        self.host_meta = host((3, n_meta), torch.float32)
+        self.host_meta = host((pods, 3, kp), torch.float32)
         self.host_coords = host((n_coords, 2), torch.int32)
-        if self.cuda:
-            self.stream = torch.cuda.Stream(device)
-            self.dev = [torch.empty_like(t, device=device) for t in self.host]
-            self.dev_meta = [torch.empty_like(t, device=device)
-                             for t in self.host_meta]
-            self.dev_coords = [torch.empty_like(t, device=device)
-                               for t in self.host_coords]
-            for t in self.dev + self.dev_meta + self.dev_coords:
-                # written on the side stream: the allocator must not hand the
-                # memory out again before those copies are done
-                t.record_stream(self.stream)
-            self.copied = [torch.cuda.Event() for _ in range(self.n)]
-            self.read = [torch.cuda.Event() for _ in range(self.n)]
-        else:
-            self.dev, self.dev_meta, self.dev_coords = (
-                self.host, self.host_meta, self.host_coords)
+
+        def placed(src, dev):
+            if dev.type != "cuda":
+                return src
+            t = torch.empty_like(src, device=dev)
+            # written on the side stream: the allocator must not hand the
+            # memory out again before those copies are done
+            t.record_stream(self.stream[dev])
+            return t
+        self.stream = {d: torch.cuda.Stream(d) for d in self.cuda}
+        self.dev = [{(p, d): placed(self.host[i][p], d)
+                     for p, devs in enumerate(self.places) for d in devs}
+                    for i in range(self.n)]
+        self.dev_meta = [{(p, d): placed(self.host_meta[i][p], d)
+                          for p, devs in enumerate(self.places) for d in devs}
+                         for i in range(self.n)]
+        self.dev_coords = [{d: placed(self.host_coords[i], d)
+                            for d in self.devices} for i in range(self.n)]
+        self.copied = [{d: torch.cuda.Event() for d in self.cuda}
+                       for _ in range(self.n)]
+        self.read = [{d: torch.cuda.Event() for d in self.cuda}
+                     for _ in range(self.n)]
         self._free = [threading.Event() for _ in range(self.n)]
         for ev in self._free:
             ev.set()
@@ -221,35 +241,39 @@ class SlabRing:
             if self.closed:
                 raise RuntimeError("slab ring closed")
         self._free[i].clear()
-        if self.cuda:
-            self.copied[i].synchronize()    # the host slab's last upload is done
+        for d in self.cuda:
+            self.copied[i][d].synchronize()   # the host slab's last upload is done
         self.slot_wait_s += time.perf_counter() - t0
 
     def upload(self, i: int) -> None:
-        """Producer: copy slot ``i``'s host buffers to the device on the side
-        stream, behind the launch that last read its device buffers."""
-        if not self.cuda:
-            return
-        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
-            self.stream.wait_event(self.read[i])
-            for dst, src in ((self.dev[i], self.host[i]),
-                             (self.dev_meta[i], self.host_meta[i]),
-                             (self.dev_coords[i], self.host_coords[i])):
-                dst.copy_(src, non_blocking=True)
-            self.copied[i].record(self.stream)
+        """Producer: copy slot ``i``'s host buffers to each card on its side
+        stream, behind the launches that last read its device buffers."""
+        for d in self.cuda:
+            with torch.cuda.device(d), torch.cuda.stream(self.stream[d]):
+                self.stream[d].wait_event(self.read[i][d])
+                pairs = [(self.dev_coords[i][d], self.host_coords[i])]
+                for p, devs in enumerate(self.places):
+                    if d in devs:
+                        pairs += [(self.dev[i][p, d], self.host[i][p]),
+                                  (self.dev_meta[i][p, d],
+                                   self.host_meta[i][p])]
+                for dst, src in pairs:
+                    dst.copy_(src, non_blocking=True)
+                self.copied[i][d].record(self.stream[d])
 
     def use(self, i: int) -> tuple:
-        """Consumer: slot ``i``'s device (slab, meta, coords), with the
-        current stream ordered behind their upload."""
-        if self.cuda:
-            torch.cuda.current_stream(self.device).wait_event(self.copied[i])
+        """Consumer: slot ``i``'s device (slabs, metas, coords) — keyed
+        ``(slice, device)``, ``(slice, device)`` and ``device`` — with each
+        card's current stream ordered behind their upload."""
+        for d in self.cuda:
+            torch.cuda.current_stream(d).wait_event(self.copied[i][d])
         return self.dev[i], self.dev_meta[i], self.dev_coords[i]
 
     def release(self, i: int) -> None:
-        """Consumer: the launch reading slot ``i`` is enqueued; the slot may
-        be refilled behind it."""
-        if self.cuda:
-            self.read[i].record(torch.cuda.current_stream(self.device))
+        """Consumer: every launch reading slot ``i`` is enqueued; the slot
+        may be refilled behind them."""
+        for d in self.cuda:
+            self.read[i][d].record(torch.cuda.current_stream(d))
         self._free[i].set()
 
     def close(self) -> None:

@@ -68,11 +68,10 @@ The file formats, the manifest's keys and the snapshot's arrays are the JAX
 package's (``repro.core.serving``), so a state dir written by either
 package restores in the other, with two differences kept on purpose: the
 engine's device is never written into a manifest (a state dir written on
-the card restores on the CPU and back), and the JAX engine options this
-package does not carry are read as follows — ``kernel_impl`` is dropped,
-``devices`` is accepted when it is None or 1, and a multi-card engine
-(``devices`` > 1 or a ``mesh_shape``) is refused with
-``MeshNotPortedError``.
+the card restores on the CPU and back), and the JAX engine's
+``kernel_impl``, which this package does not carry (one kernel a path), is
+dropped. ``devices`` and ``mesh_shape`` carry the engine's tile mesh in
+both packages; ``restore(dir, devices=…)`` overrides the device count.
 """
 from __future__ import annotations
 
@@ -149,37 +148,17 @@ class ServiceStopped(RuntimeError):
     still work."""
 
 
-class MeshNotPortedError(ValueError):
-    """A service config asks for the JAX engine's multi-card tile mesh
-    (``devices`` > 1 or a ``mesh_shape``), which this package does not carry
-    yet (ROADMAP A.3b). Raised instead of serving on one card as if the
-    option had not been given."""
-
-
 #: JAX ``EngineOptions`` fields this package's engine does not carry.
-_JAX_ONLY_ENGINE_OPTIONS = ("devices", "kernel_impl", "mesh_shape")
+_JAX_ONLY_ENGINE_OPTIONS = ("kernel_impl",)
 
 
 def _port_engine_options(options: dict) -> dict:
-    """Engine options as this package's ``EngineOptions`` takes them.
-
-    A JAX manifest (or a caller) may carry ``devices``, ``kernel_impl`` and
-    ``mesh_shape``: ``kernel_impl`` is dropped (the port has one kernel per
-    path), ``devices`` is accepted as None or 1 (one card), and a mesh —
-    ``devices`` > 1 or a ``mesh_shape`` — raises ``MeshNotPortedError``.
-    """
-    out = {k: v for k, v in options.items()
-           if k not in _JAX_ONLY_ENGINE_OPTIONS}
-    devices = options.get("devices")
-    if devices not in (None, 1):
-        raise MeshNotPortedError(
-            f"devices={devices}: the multi-card tile mesh is not ported "
-            f"(ROADMAP A.3b); this service runs on one device")
-    if options.get("mesh_shape") is not None:
-        raise MeshNotPortedError(
-            f"mesh_shape={options['mesh_shape']}: the 2-D tile mesh is not "
-            f"ported (ROADMAP A.3b); this service runs on one device")
-    return out
+    """Engine options as this package's ``EngineOptions`` takes them: a JAX
+    manifest's (or a caller's) ``kernel_impl`` is dropped, the port having
+    one kernel a path; ``devices`` and ``mesh_shape`` go to the engine's
+    tile mesh with JAX's meanings."""
+    return {k: v for k, v in options.items()
+            if k not in _JAX_ONLY_ENGINE_OPTIONS}
 
 
 @dataclass
@@ -873,9 +852,9 @@ class DetectionService:
           its own commits apply the claims state and log owner-range-tagged
           WAL records only, so its ``replica-<i>/`` dir restores
           independently.
-        engine_options: forwarded to ``EngineOptions`` (tile, n_shards,
-          ...); the JAX-only ``devices`` / ``kernel_impl`` / ``mesh_shape``
-          are read by ``_port_engine_options``.
+        engine_options: forwarded to ``EngineOptions`` (tile, devices,
+          mesh_shape, n_shards, ...); the JAX-only ``kernel_impl`` is
+          dropped (``_port_engine_options``).
         """
         if mode == "incremental":
             raise ValueError(
@@ -1551,15 +1530,14 @@ class DetectionService:
         entries keep their pre-crash epochs, so the standard lookup-time
         invalidation replays them against whatever the log tail committed
         (DESIGN.md §8.3). ``overrides`` patch manifest config (e.g.
-        ``device="cpu"``, which no manifest carries, or
-        ``prefetch_depth=0`` — engine knobs only; overriding corpus-shaping
+        ``device="cpu"``, which no manifest carries, or ``devices=8`` for a
+        different host shape — engine knobs only; overriding corpus-shaping
         config would diverge from the log). A manifest written by the JAX
-        package restores here (its ``devices`` / ``kernel_impl`` /
-        ``mesh_shape`` read as ``_port_engine_options`` says), and one
-        written here restores in the JAX package.
+        package restores here (its ``kernel_impl`` dropped, its ``devices``
+        and ``mesh_shape`` building the engine's mesh), and one written
+        here restores in the JAX package.
 
-        Raises ``NoValidSnapshotError`` when nothing loads,
-        ``MeshNotPortedError`` for a manifest of a multi-card engine, and
+        Raises ``NoValidSnapshotError`` when nothing loads and
         ``ReplayDivergenceError`` when a replayed commit does not land on
         the epoch/compaction outcome its record logged. The receipt is left
         on ``service.restore_info``.
@@ -2262,6 +2240,6 @@ class ReplicaRouter:
 
 __all__ = ["CircuitBreaker", "DeadlineExceeded", "DetectRequest",
            "DetectResponse", "DetectionService", "DurabilityOptions",
-           "MeshNotPortedError", "ReplicaBroadcastError", "ReplicaRouter", "ResidentCorpus",
+           "ReplicaBroadcastError", "ReplicaRouter", "ResidentCorpus",
            "ResultCache", "ServiceOverloaded", "ServiceStats",
            "ServiceStopped", "serve_batch", "INDEXED_MODES"]

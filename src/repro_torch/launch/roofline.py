@@ -16,7 +16,7 @@ sheet: the dense bf16 tensor-core peak, the HBM3 bandwidth, and the NVLink
 ICI link. A card set below 700 W runs slower than these peaks.
 
 Not ported: ``collective_bytes``, ``analyze_compiled`` and ``sharded_bytes``
-parse XLA's compiled HLO or need a device mesh (ROADMAP A.3b, A.8).
+parse XLA's compiled HLO or need the LM's device mesh (ROADMAP A.3c, A.8).
 """
 from __future__ import annotations
 

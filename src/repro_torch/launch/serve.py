@@ -65,8 +65,14 @@
       --replicas each replica persists under its own replica-<i>/
       subdirectory.
 
-      --mesh-shape (the JAX package's multi-card tile mesh) is refused with
-      ``MeshNotPortedError``: the port runs one card (ROADMAP A.3b).
+      --devices N runs each pass's tile scan over the first N devices of
+      the platform (default: all of them); --mesh-shape DATAxPOD over a 2-D
+      mesh, tiles over data, each chunk group over pod. --host-devices N
+      makes the CPU list N entries (``runtime.platform.
+      set_host_device_count``), so a mesh runs with ``--device cpu``:
+
+      PYTHONPATH=src python -m repro_torch.launch.serve --task detect \
+          --device cpu --host-devices 4 --mesh-shape 2x2
 """
 from __future__ import annotations
 
@@ -133,7 +139,6 @@ def serve_detect(args):
         DeadlineExceeded,
         DetectionService,
         DetectRequest,
-        MeshNotPortedError,
         ReplicaRouter,
         ServiceOverloaded,
     )
@@ -145,10 +150,6 @@ def serve_detect(args):
     )
     from repro_torch.utils.device import resolve_device
 
-    if args.mesh_shape:
-        raise MeshNotPortedError(
-            f"--mesh-shape {args.mesh_shape}: the multi-card tile mesh is not "
-            f"ported (ROADMAP A.3b); the port serves on one device")
     device = resolve_device(args.device)
     cfg = CopyConfig(alpha=0.1, s=0.8, n=50.0)
     spec = SyntheticSpec(n_sources=args.sources, n_items=args.items,
@@ -170,7 +171,8 @@ def serve_detect(args):
         mode=args.mode,
         max_batch_requests=args.batch_requests,
         max_pending_rows=args.max_pending_rows,
-        tile=args.tile, prefetch_depth=args.prefetch_depth, device=device)
+        tile=args.tile, devices=args.devices,
+        prefetch_depth=args.prefetch_depth, device=device)
     if args.shards and args.shards > 1:
         # row-range-sharded corpus plane: each detection pass scans per
         # shard and merges; spill/bitpack bound residency
@@ -178,6 +180,9 @@ def serve_detect(args):
             n_shards=args.shards, shard_pack=args.shard_pack,
             shard_spill_bytes=args.shard_spill_bytes,
             shard_spill_dir=args.shard_spill_dir)
+    if args.mesh_shape:
+        d, pod = (int(x) for x in args.mesh_shape.split("x"))
+        service_kw["mesh_shape"] = (d, pod)
     if args.state_dir:
         service_kw["durability"] = DurabilityOptions(
             state_dir=args.state_dir, snapshot_every=args.snapshot_every)
@@ -185,7 +190,8 @@ def serve_detect(args):
                   and not args.shard_owners and os.path.exists(
                       os.path.join(args.state_dir, "manifest.json")))
     if restorable:
-        svc = DetectionService.restore(args.state_dir, device=device)
+        svc = DetectionService.restore(args.state_dir, device=device,
+                                       devices=args.devices)
         ri = svc.restore_info
         print(f"[serve] restored {args.state_dir}: snapshot epoch "
               f"{ri.snapshot_epoch} + {ri.replayed_commits} replayed "
@@ -284,7 +290,8 @@ def serve_detect(args):
     es = _services(svc)[0].engine.last_stats
     peak = (f"{torch.cuda.max_memory_allocated(device) / 2**30:.3f} GiB"
             if device.type == "cuda" else "not measured (CPU)")
-    print(f"[serve] last pass: {es.get('kernel_launches', 0)} kernel "
+    print(f"[serve] last pass: {es.get('n_devices', 1)} mesh entries, "
+          f"{es.get('kernel_launches', 0)} kernel "
           f"launches, {es.get('scan_kernel_ms', 0.0):.3f} ms kernel device "
           f"time, mask source {es.get('mask_source', '-')}; peak device "
           f"memory {peak}")
@@ -388,6 +395,12 @@ def main(argv=None):
     ap.add_argument("--max-pending-rows", type=int, default=256,
                     help="backpressure bound on queued query rows")
     ap.add_argument("--tile", type=int, default=256)
+    ap.add_argument("--devices", type=int, default=None,
+                    help="1-D tile-mesh size: the first N devices of the "
+                         "platform (default: all)")
+    ap.add_argument("--host-devices", type=int, default=None,
+                    help="entries the CPU platform lists "
+                         "(runtime.platform.set_host_device_count)")
     ap.add_argument("--prefetch-depth", type=int, default=2,
                     help="chunk groups the staging pipeline stages ahead of "
                          "the tile kernel; 0 = synchronous")
@@ -405,8 +418,8 @@ def main(argv=None):
                     help="spill directory (default: the system temp "
                          "directory when a byte cap is set)")
     ap.add_argument("--mesh-shape", default=None,
-                    help="the JAX package's 2-D tile mesh DATAxPOD: refused "
-                         "here (one card; ROADMAP A.3b)")
+                    help="2-D tile mesh DATAxPOD (e.g. 4x2): tiles over "
+                         "data, entry chunks over pod")
     ap.add_argument("--commit-accepted", action="store_true",
                     help="after the first wave, commit every served "
                          "request's accepted rows into the live corpus "
@@ -441,6 +454,9 @@ def main(argv=None):
                     help="write a full snapshot every N commits "
                          "(0 = only the initial snapshot)")
     args = ap.parse_args(argv)
+    if args.host_devices:
+        from repro_torch.runtime.platform import set_host_device_count
+        set_host_device_count(args.host_devices)
     if args.task == "detect":
         serve_detect(args)
     else:

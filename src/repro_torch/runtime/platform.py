@@ -1,6 +1,7 @@
-"""Per-device pipeline autotuning for launch and benchmarks.
+"""Per-device pipeline autotuning, and the devices a mesh is built from.
 
-The port of the JAX package's ``runtime/platform.py``, its autotuning half.
+The port of the JAX package's ``runtime/platform.py``: its autotuning half,
+and ``set_host_device_count`` with ``local_devices``.
 The best (tile edge, chunk_group) point of the tiled engine
 (``core/engine.py:EngineOptions``) depends on the device (the CPU wants
 cache-sized groups, the card dispatch-amortizing ones), so ``autotune``
@@ -14,9 +15,17 @@ names it by the device the engine runs on (``device_key``): ``cpu``, or
 ``cuda-sm90`` on an H100. The JSON layout is JAX's: ``backend`` (the key),
 ``tile``, ``chunk_group``, ``wall_s`` and ``sweep``.
 
-Not ported: ``set_platform`` and ``set_host_device_count`` write XLA flags
-read when JAX's backend starts. They have no torch counterpart: the port
-picks its device per entry point through ``utils.device.resolve_device``.
+``set_host_device_count(n)`` is the counterpart of JAX's flag
+``--xla_force_host_platform_device_count``: like it, it affects the host
+(CPU) platform only, where ``local_devices(torch.device("cpu"))`` then
+lists ``n`` entries of the one ``cpu`` device, so a tile mesh of several
+entries runs on the CPU as JAX's tests run theirs on virtual host devices.
+``local_devices`` of a ``cuda`` device lists every card. Unlike the XLA
+flag it takes effect at any time: a mesh reads it when it is built.
+
+Not ported: ``set_platform`` writes XLA flags read when JAX's backend
+starts. It has no torch counterpart: the port picks its device per entry
+point through ``utils.device.resolve_device``.
 """
 from __future__ import annotations
 
@@ -30,6 +39,36 @@ from repro_torch.utils.device import resolve_device
 
 #: Default location of the per-device autotune cache (relative to cwd).
 AUTOTUNE_DIR = ".autotune"
+
+#: Entries the CPU platform lists (``set_host_device_count``).
+_host_device_count = 1
+
+
+def set_host_device_count(n: int) -> None:
+    """Make the CPU platform list ``n`` entries (``local_devices``)."""
+    global _host_device_count
+    if int(n) < 1:
+        raise ValueError(f"host device count must be >= 1, got {n}")
+    _host_device_count = int(n)
+
+
+def host_device_count() -> int:
+    """The entries the CPU platform lists (1 unless set)."""
+    return _host_device_count
+
+
+def local_devices(device=None) -> list:
+    """The devices of ``device``'s platform a mesh may take, in order:
+    ``cuda:0`` … ``cuda:{count - 1}`` for a card (``None`` is the card,
+    through ``resolve_device``), ``host_device_count()`` entries of
+    ``cpu`` for the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    if dev.type == "cpu":
+        return [torch.device("cpu")] * _host_device_count
+    return [dev]
 
 
 def device_key(device=None) -> str:
@@ -101,4 +140,5 @@ def autotune(
     return out
 
 
-__all__ = ["AUTOTUNE_DIR", "autotune", "device_key", "load_autotune"]
+__all__ = ["AUTOTUNE_DIR", "autotune", "device_key", "host_device_count",
+           "load_autotune", "local_devices", "set_host_device_count"]

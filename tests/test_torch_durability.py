@@ -9,8 +9,9 @@ twin that never died. The transient commit around each batch is unwound
 bit for bit, index and mask cache, even when the pass raises mid-batch. A
 state dir written by the JAX service (mode ``exact``, which runs on the
 installed jax) restores in the port and one written by the port restores in
-the JAX service, deciding alike; a JAX manifest of a multi-card engine is
-refused with ``MeshNotPortedError``, and no manifest carries the device.
+the JAX service, deciding alike; a JAX manifest of a multi-card engine
+(``devices`` 4, ``mesh_shape`` [2, 2]) restores onto that tile mesh of CPU
+entries, and no manifest carries the device.
 The ``gpu`` case restores a state dir written on the card on the CPU.
 """
 import torch_threads  # noqa: F401  (caps torch's threads a worker)
@@ -28,7 +29,6 @@ from repro_torch.core import (
     CopyConfig,
     DetectionService,
     DurabilityOptions,
-    MeshNotPortedError,
     build_index,
     index_detect_exact,
 )
@@ -36,6 +36,7 @@ from repro_torch.core.engine import EngineOptions
 from repro_torch.core.serving import DetectRequest
 from repro_torch.core.types import ClaimsDataset
 from repro_torch.core.wal import LOG_NAME, MANIFEST_NAME, CommitLog, list_snapshots
+from repro_torch.runtime import platform
 
 CFG = CopyConfig(alpha=0.1, s=0.8, n=50.0)
 JCFG = JCopyConfig(alpha=0.1, s=0.8, n=50.0)
@@ -486,7 +487,7 @@ def test_port_state_dir_restores_in_jax(tmp_path):
     manifest = json.loads((tmp_path / MANIFEST_NAME).read_text())
     assert set(manifest["engine_options"]) == {
         f.name for f in EngineOptions.__dataclass_fields__.values()}
-    assert "device" not in json.dumps(manifest)
+    assert '"device"' not in json.dumps(manifest)    # "devices" is the mesh
     j = jserving.DetectionService.restore(str(tmp_path))
     assert j.epoch == t.epoch == 5
     assert j.restore_info.replayed_commits == 1
@@ -497,14 +498,16 @@ def test_port_state_dir_restores_in_jax(tmp_path):
     _cross_check(t, j, (133,))
 
 
-@pytest.mark.parametrize("patch,ok", [
+@pytest.mark.parametrize("patch,single", [
     ({"mesh_shape": [2, 2]}, False),
     ({"devices": 4}, False),
     ({"devices": 1, "kernel_impl": "ref"}, True),
 ])
-def test_jax_manifest_engine_options(tmp_path, patch, ok):
-    """A JAX manifest's ``devices`` / ``kernel_impl`` / ``mesh_shape``: a
-    multi-card engine is refused, typed, naming A.3b; one card restores."""
+def test_jax_manifest_engine_options(tmp_path, patch, single):
+    """A JAX manifest's ``devices`` / ``kernel_impl`` / ``mesh_shape``:
+    ``kernel_impl`` is dropped, and the engine restores onto the manifest's
+    tile mesh (here of 4 CPU entries), deciding as the JAX service; a
+    bucketed restore of it runs its scan over that mesh."""
     ds, p = _world(16)
     j = _jax_svc(ds, p, tmp_path)
     j.commit(*_rows(1, 2))
@@ -514,13 +517,23 @@ def test_jax_manifest_engine_options(tmp_path, patch, ok):
         manifest["engine_options"])
     manifest["engine_options"].update(patch)
     path.write_text(json.dumps(manifest))
-    if not ok:
-        with pytest.raises(MeshNotPortedError, match="A.3b"):
-            DetectionService.restore(str(tmp_path), device="cpu")
-        return
-    t = DetectionService.restore(str(tmp_path), device="cpu")
-    assert t.epoch == 1
-    _cross_check(t, j, (150,))
+    before = platform.host_device_count()
+    platform.set_host_device_count(4)
+    try:
+        t = DetectionService.restore(str(tmp_path), device="cpu")
+        assert t.epoch == 1
+        mesh = t.engine._tile_mesh()
+        assert mesh.size == (1 if single else 4)
+        if "mesh_shape" in patch:
+            assert mesh.shape == {"data": 2, "pod": 2}
+        _cross_check(t, j, (150,))
+        tb = DetectionService.restore(str(tmp_path), device="cpu",
+                                      mode="bucketed", tile=16)
+        a, b = _serve(tb, _request(151)), _serve(t, _request(151))
+        np.testing.assert_array_equal(a.copying, b.copying)
+        assert tb.engine.last_stats["n_devices"] == mesh.size
+    finally:
+        platform.set_host_device_count(before)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,11 @@ JAX service itself (decisions equal, ``c_fwd`` and Pr(⊥) within rtol 2e-5 /
 atol 1e-4, ROADMAP C3–C4). The data helpers (``synthetic_query_rows`` and
 the Table V presets) make the JAX package's arrays from the same seed. The
 ``detect`` CLI runs end to end on the CPU, with a commit, a retraction, a
-state dir and a restore. The ``gpu`` case holds the service on the card
-against the CPU.
+state dir and a restore, and on a 2×2 tile mesh of CPU entries. The
+engine's ``devices`` / ``mesh_shape`` are carried: services on 8 CPU
+entries (``runtime.platform.set_host_device_count``) serve, commit,
+snapshot and restore deciding as one entry does. The ``gpu`` case holds the
+service on the card against the CPU.
 """
 import torch_threads  # noqa: F401  (caps torch's threads a worker)
 import numpy as np
@@ -31,13 +34,14 @@ from repro_torch.core import (
 from repro_torch.core.serving import (
     DetectionService,
     DetectRequest,
-    MeshNotPortedError,
+    DurabilityOptions,
     ResidentCorpus,
     ServiceOverloaded,
     serve_batch,
 )
 from repro_torch.core.types import ClaimsDataset
 from repro_torch.data import claims as tclaims
+from repro_torch.runtime import platform
 from repro_torch.data.claims import (
     SyntheticSpec,
     oracle_claim_probs,
@@ -367,15 +371,57 @@ def test_service_runs_on_the_card_unless_told(corpus):
     assert svc.engine.device.type == "cpu"
 
 
-def test_mesh_options_refused_typed(corpus):
+@pytest.fixture
+def host8():
+    """Eight CPU entries for the test, the count before it afterwards."""
+    before = platform.host_device_count()
+    platform.set_host_device_count(8)
+    yield
+    platform.set_host_device_count(before)
+
+
+def test_mesh_options_refused_typed(corpus, requests, tmp_path, host8):
+    """The JAX engine's tile-mesh options are carried, no longer refused:
+    ``devices=8`` and ``mesh_shape=(4, 2)`` services on 8 CPU entries
+    serve, commit, snapshot and restore (onto the same mesh) with the
+    decisions of a ``devices=1`` service; ``kernel_impl`` is dropped."""
     sc, p = corpus
-    with pytest.raises(MeshNotPortedError, match="A.3b"):
-        DetectionService(sc.dataset, p, CFG, mesh_shape=(2, 2), **KW)
-    with pytest.raises(MeshNotPortedError, match="A.3b"):
-        DetectionService(sc.dataset, p, CFG, devices=4, **KW)
+    reqs, _ = requests
     svc = DetectionService(sc.dataset, p, CFG, devices=1, kernel_impl="auto",
                            mesh_shape=None, **KW)
     assert svc.engine.options.tile == 64
+    kw = dict(KW, tile=16)
+
+    def wave(s, rs):
+        futs = [s.submit(r) for r in rs]
+        s.flush()
+        return [f.result() for f in futs]
+
+    def same(s, one, rs, n_devices):
+        for a, b in zip(wave(s, rs), wave(one, rs)):
+            np.testing.assert_array_equal(a.copying, b.copying)
+            np.testing.assert_array_equal(a.intra_copying, b.intra_copying)
+        assert s.engine.last_stats["n_devices"] == n_devices
+
+    meshes = {"devices8": dict(devices=8), "mesh4x2": dict(mesh_shape=(4, 2))}
+    for name, opts in meshes.items():
+        state = str(tmp_path / name)
+        one = DetectionService(sc.dataset, p, CFG, devices=1, **kw)
+        mesh = DetectionService(
+            sc.dataset, p, CFG, durability=DurabilityOptions(
+                state_dir=state, snapshot_every=1), **opts, **kw)
+        same(mesh, one, reqs[:2], 8)
+        for s_ in (mesh, one):
+            s_.commit(reqs[3].values, reqs[3].accuracy, reqs[3].p_claim)
+        same(mesh, one, reqs[:3], 8)
+        back = DetectionService.restore(state, device="cpu")
+        assert back.epoch == mesh.epoch == 1
+        assert (back.engine.options.devices,
+                back.engine.options.mesh_shape) == (
+                    opts.get("devices"), opts.get("mesh_shape"))
+        same(back, one, reqs[1:3], 8)
+        fewer = DetectionService.restore(state, device="cpu", devices=2)
+        same(fewer, one, reqs[2:], 2 if name == "devices8" else 8)
 
 
 # ---------------------------------------------------------------------------
@@ -448,9 +494,16 @@ def test_detect_cli_commits_retracts_and_restores(tmp_path, capsys):
     second = capsys.readouterr().out
     assert (f"corpus {corpus} sources at epoch {epoch}" in second), second
     assert "6/6 requests" in second
-    with pytest.raises(MeshNotPortedError, match="A.3b"):
-        serve.main(["--task", "detect", "--device", "cpu",
-                    "--mesh-shape", "2x2"])
+    before = platform.host_device_count()
+    try:
+        serve.main(["--task", "detect", "--sources", "64", "--items", "384",
+                    "--device", "cpu", "--requests", "6",
+                    "--batch-requests", "3", "--tile", "16",
+                    "--host-devices", "4", "--mesh-shape", "2x2"])
+    finally:
+        platform.set_host_device_count(before)
+    meshed = capsys.readouterr().out
+    assert "6/6 requests" in meshed and "4 mesh entries" in meshed
 
 
 # ---------------------------------------------------------------------------
