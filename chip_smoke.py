@@ -22,11 +22,15 @@ entries of this card, ``sharded_tile_scores_2d``,
 hymba-1.5b, qwen2.5-3b, musicgen-large, phi3.5-moe and gemma-2b), and the
 LM training path ``repro_torch.runtime.train`` (Llama-3.2-1B, hymba-1.5b,
 falcon-mamba-7b with Adafactor, gemma-2b, musicgen-large and phi3.5-moe,
-and grok-1-314b through the train CLI) — and
+and grok-1-314b through the train CLI), and the LM's multi-rank half
+(``repro_torch.runtime.pipeline_parallel.pipeline_apply``,
+``repro_torch.optim.compression.compressed_grad_sum``, elastic restore
+onto a ``DeviceMesh`` by ``repro_torch.runtime.sharding``'s rules) in a
+one-rank ``nccl`` world — and
 checks them phase by phase; any failure exits non-zero. Phases 18, 25
 and 13–16 run right after phase 6, while the full pass's store is still in
 memory; then phase 17 on a corpus of its own, phases 19 and 20, then
-phases 7–12, then phases 21–24.
+phases 7–12, then phases 21–24, then phase 26.
 Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -323,7 +327,22 @@ Phases:
      exact INDEX, and ``DetectionEngine(devices=4)`` reporting the card's
      one device; (d) ``distributed_pair_scores`` on 2×2 (data, model) and
      2×1×2 (pod, data, model) meshes against the one-device product. B1's
-     ``launches_by_path`` add the phase's mesh launches.
+     ``launches_by_path`` add the phase's mesh launches;
+ 26. the LM's multi-rank half (last), in a one-rank ``nccl`` world opened
+     through ``runtime.platform.process_group`` (a ``file://`` store in a
+     temporary directory) with a (1, 1) ``data`` × ``model``
+     ``DeviceMesh``, closed at the end: (a) ``pipeline_apply`` of
+     Llama-3.2-1B's 16 blocks (full width, seed 0, bf16) as one stage over
+     4 microbatches of 1 × 2048, bit-equal to the stage on each
+     microbatch, B4 launched 64 times (B4's ``launches_by_path`` add them
+     as "pipeline (phase 26)"); (b) ``compressed_grad_sum`` over Llama's
+     parameter tree filled with N(0, 1), two steps with the residual fed
+     back, payload, sums and residuals bit-equal to the same arithmetic
+     in plain torch, with ms and payload / float32 bytes; (c) Llama at
+     full width and 2 of 16 layers saved and restored as ``DTensor``s
+     placed by ``model_shardings``' specs, bit-equal, the local shards'
+     bytes equal to ``sharded_bytes``; (d) the phase's seconds (budget 30)
+     and peak memory.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -4014,7 +4033,8 @@ def _rise_measured(torch, opt):
                    time.perf_counter() - t0, before]
         return out
 
-    return Optimizer(init=opt.init, update=update), rise
+    return Optimizer(init=opt.init, update=update,
+                     state_dims=opt.state_dims), rise
 
 
 def _adafactor_check(torch, dev) -> None:
@@ -4610,6 +4630,193 @@ def phase_xtrain(torch, np, dev, ops, ref, card) -> dict:
     return paths
 
 
+# phase 26: the LM's multi-rank half in a one-rank nccl world
+LM_MESH_ARCH = "llama3.2-1b"
+LM_MESH_MICRO = (4, 1, 2048)        # microbatches × batch × tokens, (a)
+LM_MESH_LAUNCHES = 64               # B4: 16 layers × 4 microbatches
+LM_MESH_RESTORE_LAYERS = 2          # (c): full width, 2 of 16 layers
+LM_MESH_BUDGET_S = 30.0
+
+
+def phase_lm_mesh(torch, np, dev, ops, card) -> dict:
+    """Phase 26: the LM's multi-rank half (``runtime/pipeline_parallel.py``,
+    ``optim/compression.py``, ``runtime/sharding.py``, elastic restore in
+    ``checkpoint/``) in a one-rank world over ``dev``'s backend (``nccl``
+    on the card) with a (1, 1) ``data`` × ``model`` ``DeviceMesh``, opened
+    and closed here. (a) ``pipeline_apply`` of Llama-3.2-1B's 16 blocks as
+    one stage over 4 microbatches of 1 × 2048 bf16 tokens, bit-equal to
+    the stage on each microbatch, B4 launched 16 a microbatch; (b)
+    ``compressed_grad_sum`` over Llama's parameter tree filled with N(0, 1),
+    two steps with the residual fed back: payload, sums and residuals
+    bit-equal to the same arithmetic in plain torch; (c) Llama at full
+    width and 2 layers saved, restored as ``DTensor``s placed by
+    ``model_shardings``' specs, bit-equal, the local shards' bytes equal to
+    ``sharded_bytes``. Returns B4's launches in (a)."""
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.roofline import sharded_bytes
+    from repro_torch.models import Model
+    from repro_torch.models.common import DTYPES, make_rope, tree_map
+    from repro_torch.models.transformer import run_segment
+    from repro_torch.optim.compression import (
+        compressed_grad_sum,
+        init_error_state,
+        quantize_int8,
+    )
+    from repro_torch.runtime.pipeline_parallel import pipeline_apply
+    from repro_torch.runtime.platform import process_group
+    from repro_torch.runtime.sharding import model_shardings, named
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_MESH_ARCH)
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory(prefix="phase26_") as tmp, \
+            process_group(0, 1, os.path.join(tmp, "store"), device=dev) as rdev:
+        backend = dist.get_backend()
+        if backend != want_backend or dist.get_world_size() != 1:
+            raise AssertionError(f"the world runs {backend} over "
+                                 f"{dist.get_world_size()} ranks")
+        mesh = init_device_mesh(rdev.type, (1, 1),
+                                mesh_dim_names=("data", "model"))
+        parts = {"world and mesh": time.perf_counter() - t_phase}
+        log(f"[26] one-rank {backend} world on {rdev}, DeviceMesh "
+            f"{tuple(mesh.shape)} {mesh.mesh_dim_names} ({card})")
+        t_part = time.perf_counter()
+
+        # (a) the pipelined prefill
+        model = Model(cfg, device=rdev)
+        params = model.init(seed=0)
+        n_micro, mb, S = LM_MESH_MICRO
+        tokens = torch.from_numpy(np.random.default_rng(26).integers(
+            0, cfg.vocab_size, (n_micro, mb, S))).to(rdev)
+        rope = make_rope(torch.arange(S, device=rdev), cfg.resolved_head_dim,
+                         cfg.rope_theta)
+
+        def stage_fn(p, h):                     # every block, in order
+            for seg, (kind, _) in zip(p["segments"], cfg.plan):
+                h = run_segment(kind, seg, h, rope, cfg)
+            return h
+
+        with torch.no_grad():
+            x = params["embed"][tokens].to(DTYPES[cfg.dtype])
+            stage_fn(params, x[0])                              # warm-up
+            torch.cuda.synchronize()
+            ops.flash_attention_fwd.launches = 0
+            t0 = time.perf_counter()
+            out = pipeline_apply(stage_fn, params, x)
+            torch.cuda.synchronize()
+            pipe_s = time.perf_counter() - t0
+            launches = ops.flash_attention_fwd.launches
+            want = torch.stack([stage_fn(params, x[m]) for m in range(n_micro)])
+        if launches != LM_MESH_LAUNCHES:
+            raise AssertionError(f"[26a] B4 launched {launches} times, not "
+                                 f"{LM_MESH_LAUNCHES}")
+        if (out.shape != x.shape or not bool(torch.isfinite(out).all())
+                or not torch.equal(out, want)):
+            raise AssertionError("[26a] the pipelined prefill differs from "
+                                 "the stage on each microbatch")
+        log(f"[26a] pipeline_apply: {cfg.name} {cfg.n_layers} blocks as one "
+            f"stage, {n_micro} microbatches of {mb}x{S} {cfg.dtype}: "
+            f"{pipe_s:.4f} s ({n_micro * mb * S / pipe_s:.1f} tok/s), B4 "
+            f"launches {launches}, outputs == the stage on each microbatch "
+            f"bit for bit")
+        del x, out, want, tokens
+        parts["(a)"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # (b) the int8 error-feedback all-reduce over the parameter tree
+        gen = torch.Generator(device=rdev).manual_seed(27)
+        grads = tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                               device=rdev), params)
+        del params, model
+        err = init_error_state(grads)
+        n = sum(int(g.numel()) for g in _tree_leaves(grads))
+        n_leaves = sum(1 for _ in _tree_leaves(grads))
+        for step in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summed, new_err = compressed_grad_sum(grads, err)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            for g, e, s_, ne in zip(*(list(_tree_leaves(t)) for t in
+                                      (grads, err, summed, new_err))):
+                y = g.to(torch.float32) + e
+                scale = torch.clamp(y.abs().max() * (1.0 / 127.0), min=1e-12)
+                q = torch.clamp(torch.round(y / scale), -127, 127).to(torch.int8)
+                if not (torch.equal(quantize_int8(y)[0], q)
+                        and torch.equal(s_, scale * q.to(torch.float32))
+                        and torch.equal(ne, (y.double() - q.double()
+                                             * scale.double()).float())):
+                    raise AssertionError(f"[26b] step {step}: payload, sum or "
+                                         f"residual differs from plain torch")
+            if step == 1 and not any(bool(t.abs().max() > 0)
+                                     for t in _tree_leaves(new_err)):
+                raise AssertionError("[26b] no residual was kept")
+            log(f"[26b] compressed_grad_sum step {step}: {n_leaves} leaves, "
+                f"{n} values, {ms:.3f} ms; payload {n + 4 * n_leaves} B int8 "
+                f"+ scales against {4 * n} B float32; payload, sums and "
+                f"residuals == plain torch bit for bit")
+            err = new_err
+            del summed
+        del grads, err, new_err
+        gc.collect()
+        torch.cuda.empty_cache()
+        parts["(b)"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
+        # (c) elastic restore onto the mesh
+        cfg2 = _cut_depth(cfg, LM_MESH_RESTORE_LAYERS)
+        model2 = Model(cfg2, device=rdev)
+        params2 = model2.init(seed=0)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in _tree_leaves(params2))
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, 0, params2)
+        save_s = time.perf_counter() - t0
+        p_specs, _ = model_shardings(model2, mesh)
+        template = Model(cfg2, device="meta").init(0)
+        t0 = time.perf_counter()
+        back, _ = load_checkpoint(ckpt, template,
+                                  shardings=named(p_specs, mesh))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        local = 0
+        for got, want in zip(_tree_leaves(back), _tree_leaves(params2)):
+            if not (isinstance(got, DTensor) and got.device.type == rdev.type
+                    and torch.equal(got.full_tensor(), want)):
+                raise AssertionError("[26c] a restored leaf is not the saved "
+                                     "one as a DTensor on the mesh")
+            local += got.to_local().numel() * got.to_local().element_size()
+        bound = sharded_bytes(template, p_specs, mesh)
+        if local != bound:
+            raise AssertionError(f"[26c] local shards {local} B != "
+                                 f"sharded_bytes {bound} B")
+        log(f"[26c] {cfg2.name} at full width, {LM_MESH_RESTORE_LAYERS} of "
+            f"{cfg.n_layers} layers: {nbytes} B saved in {save_s:.3f} s, "
+            f"restored onto the mesh as DTensors in {load_s:.3f} s, bit-equal; "
+            f"local shards {local} B == sharded_bytes")
+        del back, params2, model2
+        parts["(c)"] = time.perf_counter() - t_part
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"[26d] phase 26: {phase_s:.3f} s (budget {LM_MESH_BUDGET_S:.0f} s: "
+        f"{'within' if phase_s <= LM_MESH_BUDGET_S else 'over'}; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+        + "), peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+        f"({card})")
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4972,17 +5179,24 @@ def main() -> int:
     # -- 24. gemma-2b served and trained; the moe and cross kinds trained ---
     marks.append(("24", time.perf_counter()))
     xtrain_paths = phase_xtrain(torch, np, dev, ops, ref, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 26. the LM's multi-rank half in a one-rank nccl world ---------------
+    marks.append(("26", time.perf_counter()))
+    lm_mesh = phase_lm_mesh(torch, np, dev, ops, card)
     # B4's launches: Llama's prefill and training, hymba's prefill and
     # training, grok's train CLI run, qwen's, musicgen's and phi's prefills
     # and musicgen's decode, gemma's prefill and the three training runs of
-    # phase 24, added; B5's and B6's: Llama's, hymba's, grok's CLI and phase
-    # 24's training
+    # phase 24 and phase 26's pipelined prefill, added; B5's and B6's:
+    # Llama's, hymba's, grok's CLI and phase 24's training
     b4_paths = {"llama3.2-1b prefill (phase 8)": llama["launches"],
                 "llama3.2-1b training (phase 11)": training["launches"]["fwd"],
                 "hymba-1.5b prefill (phase 21)": mamba_out["launches"],
                 "hymba-1.5b training (phase 22)": ssm_train["launches"][0],
                 "grok-1-314b train CLI (phase 22)": ssm_train["grok_cli"][0],
-                **xserve_paths, **xtrain_paths["fwd"]}
+                **xserve_paths, **xtrain_paths["fwd"],
+                "pipeline (phase 26)": lm_mesh["launches"]}
     bwd = []
     for name, key, i, line in (("flash_attention_bwd_dq", "dq", 1, 151),
                                ("flash_attention_bwd_dkv", "dkv", 2, 180)):

@@ -20,6 +20,14 @@ writes a bf16 leaf as its raw 16-bit patterns (``uint16``) with the dtype
 ``bfloat16`` by reinterpreting its two bytes per element, whatever numpy
 type ``np.load`` gives them (``uint16``, a two-byte void, or
 ``ml_dtypes.bfloat16`` where that package is loaded).
+
+Elastic restore, as in the JAX package: the saved arrays are logical
+(unsharded). A tree of ``DTensor`` leaves is saved as each leaf's
+``full_tensor()`` — every rank takes part in that gather, rank 0 alone
+writes, and every rank waits for the write — in the same format, and
+``load_checkpoint(..., shardings=...)`` places each leaf as a ``DTensor``
+on the current mesh (``distribute_tensor``), so a checkpoint written by a
+world of one size restores into a world of another.
 """
 from __future__ import annotations
 
@@ -32,7 +40,29 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_unflatten
+from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _writes(leaves) -> bool:
+    """False on ranks other than 0 where the tree holds ``DTensor``s."""
+    import torch.distributed as dist
+
+    return not (any(_is_dtensor(t) for t in leaves) and dist.is_initialized()
+                and dist.get_rank() != 0)
+
+
+def _barrier(leaves) -> None:
+    """Every rank waits for rank 0's write of a ``DTensor`` tree."""
+    import torch.distributed as dist
+
+    if any(_is_dtensor(t) for t in leaves) and dist.is_initialized():
+        dist.barrier()
 
 
 def _paths(tree, prefix: str = "") -> list:
@@ -45,21 +75,27 @@ def _paths(tree, prefix: str = "") -> list:
 
 
 def _host(t: torch.Tensor) -> tuple:
-    """(numpy copy on the host, dtype name) of a leaf."""
+    """(numpy copy on the host, dtype name) of a leaf; a ``DTensor``'s
+    logical array (a collective: every rank of its mesh calls it)."""
+    if _is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), str(t.numpy().dtype)
 
 
-def _leaf(a: np.ndarray, dtype: str, like: torch.Tensor) -> torch.Tensor:
-    """A stored array as a tensor of ``like``'s dtype on ``like``'s device."""
+def _leaf(a: np.ndarray, dtype: str, like: torch.Tensor,
+          device=None) -> torch.Tensor:
+    """A stored array as a tensor of ``like``'s dtype on ``device``
+    (default ``like``'s device)."""
     if dtype == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.uint16).view(np.int16)
         t = torch.from_numpy(bits.copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(a))
-    return t.to(device=like.device, dtype=like.dtype)
+    return t.to(device=like.device if device is None else device,
+                dtype=like.dtype)
 
 
 def _write(directory: str, step: int, paths, arrays, dtypes,
@@ -89,16 +125,37 @@ def _write(directory: str, step: int, paths, arrays, dtypes,
 
 def save_checkpoint(directory: str, step: int, tree,
                     metadata: Optional[dict] = None) -> str:
-    """Write ``tree`` (dicts and lists of tensors) as ``step_<n>/``; returns
-    the directory."""
-    host = [_host(t) for t in tree_leaves(tree)]
-    return _write(directory, step, _paths(tree), [a for a, _ in host],
-                  [d for _, d in host], metadata)
+    """Write ``tree`` (dicts and lists of tensors or ``DTensor``s) as
+    ``step_<n>/``; returns the directory."""
+    leaves = tree_leaves(tree)
+    host = [_host(t) for t in leaves]
+    final = os.path.join(directory, f"step_{step:08d}")
+    if _writes(leaves):
+        final = _write(directory, step, _paths(tree), [a for a, _ in host],
+                       [d for _, d in host], metadata)
+    _barrier(leaves)
+    return final
 
 
-def load_checkpoint(directory: str, template, step: Optional[int] = None):
+def _placed(a: torch.Tensor, sharding):
+    """A restored leaf as a ``DTensor`` on ``sharding``'s mesh: a
+    ``runtime.sharding.NamedSharding`` or a (``DeviceMesh``, placements)
+    pair."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh, placements = sharding
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    return distribute_tensor(a.to(dev), mesh, list(placements))
+
+
+def load_checkpoint(directory: str, template, step: Optional[int] = None,
+                    shardings=None):
     """Restore into the structure of ``template``: every leaf in the
-    template leaf's dtype and on its device. Returns (tree, manifest)."""
+    template leaf's dtype, on its device, or, where ``shardings`` (a tree
+    of (``DeviceMesh``, placements) like the template) is given, as a
+    ``DTensor`` placed so on the current mesh (elastic restore; every rank
+    of the mesh calls it). Returns (tree, manifest)."""
     step_dir = (os.path.join(directory, f"step_{step:08d}") if step is not None
                 else latest_checkpoint(directory))
     if step_dir is None:
@@ -108,10 +165,15 @@ def load_checkpoint(directory: str, template, step: Optional[int] = None):
     t_paths = _paths(template)
     if t_paths != manifest["paths"]:
         raise ValueError(f"checkpoint/template structure mismatch in {step_dir}")
+    cpu = torch.device("cpu")
     with np.load(os.path.join(step_dir, "arrays.npz")) as data:
-        leaves = [_leaf(data[f"leaf_{i}"], d, like) for i, (d, like) in
+        leaves = [_leaf(data[f"leaf_{i}"], d, like, cpu if shardings is not None
+                        else None) for i, (d, like) in
                   enumerate(zip(manifest["dtypes"], tree_leaves(template)))]
-    return tree_unflatten(template, leaves), manifest
+    tree = tree_unflatten(template, leaves)
+    if shardings is not None:
+        tree = tree_map(_placed, tree, shardings)
+    return tree, manifest
 
 
 def latest_checkpoint(directory: str) -> Optional[str]:
@@ -140,7 +202,10 @@ class CheckpointManager:
         # copy to the host synchronously (the train step updates the
         # tensors in place); write in the background
         paths = _paths(tree)
-        host = [_host(t) for t in tree_leaves(tree)]
+        leaves = tree_leaves(tree)
+        host = [_host(t) for t in leaves]
+        if not _writes(leaves):
+            return
 
         def work():
             _write(self.directory, step, paths, [a for a, _ in host],
@@ -154,9 +219,18 @@ class CheckpointManager:
         else:
             work()
 
-    def restore(self, template, step: Optional[int] = None):
+    def restore(self, template, shardings=None, step: Optional[int] = None):
+        """The latest (or ``step``'s) checkpoint into ``template``'s
+        structure; with ``shardings``, as ``DTensor``s on the current mesh
+        once rank 0's writes have ended (every rank calls it)."""
         self.wait()
-        return load_checkpoint(self.directory, template, step=step)
+        if shardings is not None:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                dist.barrier()
+        return load_checkpoint(self.directory, template, step=step,
+                               shardings=shardings)
 
     def _gc(self):
         steps = sorted(d for d in os.listdir(self.directory)

@@ -15,12 +15,15 @@ sheet: the dense bf16 tensor-core peak, the HBM3 bandwidth, and the NVLink
 4 bandwidth of one direction (900 GB/s both ways) in place of the TPU's
 ICI link. A card set below 700 W runs slower than these peaks.
 
-Not ported: ``collective_bytes``, ``analyze_compiled`` and ``sharded_bytes``
-parse XLA's compiled HLO or need the LM's device mesh (ROADMAP A.3c, A.8).
+``sharded_bytes`` is one device's bytes of a tree placed by specs
+(``runtime/sharding.py``). Not ported: ``collective_bytes`` and
+``analyze_compiled`` parse XLA's compiled HLO (ROADMAP A.8).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+from repro_torch.models.common import tree_map
 
 # NVIDIA H100 80GB HBM3 (SXM), 700.00 W: roofline constants per card
 PEAK_FLOPS_BF16 = 989e12          # FLOP/s, dense bf16 tensor cores
@@ -90,6 +93,32 @@ def count_params(tree, active_expert_frac: float = 1.0,
     return total, active
 
 
+def sharded_bytes(shapes_tree, specs_tree, mesh) -> float:
+    """Exact per-device bytes of a tree of shaped leaves (tensors, meta
+    tensors, DTensors by their logical shape) placed by a tree of specs
+    on ``mesh`` (anything ``runtime.sharding.mesh_axes`` reads)."""
+    from repro_torch.runtime.sharding import mesh_axes
+
+    axes = mesh_axes(mesh)
+    total = 0.0
+
+    def leaf(t, spec):
+        nonlocal total
+        shard = 1
+        for entry in spec or ():
+            if entry is None:
+                continue
+            for a in entry if isinstance(entry, tuple) else (entry,):
+                shard *= axes[a]
+        n = 1
+        for s in t.shape:
+            n *= int(s)
+        total += n * t.dtype.itemsize / shard
+
+    tree_map(leaf, shapes_tree, specs_tree)
+    return float(total)
+
+
 def model_flops_for(cfg, shape, total_params: float, active_params: float) -> float:
     """MODEL_FLOPS = 6·N·D (train) / 2·N·D (prefill) / 2·N·B (decode), for
     the port's ``ShapeConfig``."""
@@ -101,4 +130,4 @@ def model_flops_for(cfg, shape, total_params: float, active_params: float) -> fl
 
 
 __all__ = ["HBM_BW", "NVLINK_BW", "PEAK_FLOPS_BF16", "Roofline",
-           "count_params", "model_flops_for"]
+           "count_params", "model_flops_for", "sharded_bytes"]

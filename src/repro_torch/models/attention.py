@@ -43,6 +43,22 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, cross: bool = False):
     return p
 
 
+def attention_dims(cfg: ModelConfig, cross: bool = False):
+    """Logical dims of ``init_attention``'s leaves (``runtime/sharding.py``)."""
+    kv_in = "cond_dim" if cross else "d_model"
+    d = {
+        "wq": ("d_model", "heads", "head_dim"),
+        "wk": (kv_in, "kv_heads", "head_dim"),
+        "wv": (kv_in, "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "d_model"),
+    }
+    if cfg.qkv_bias:
+        d["bq"] = ("heads", "head_dim")
+        d["bk"] = ("kv_heads", "head_dim")
+        d["bv"] = ("kv_heads", "head_dim")
+    return d
+
+
 def _project_qkv(p, x, kv_src, cfg: ModelConfig):
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bhsk", x, p["wq"].to(dt))
@@ -91,6 +107,15 @@ def init_kv_cache(cfg: ModelConfig, n_layers: int, batch: int, seq_len: int,
         # (continuous batching, runtime/serve_loop.py)
         "pos_ids": torch.full((n_layers, batch, S), -1, dtype=torch.int32,
                               device=device),
+    }
+
+
+def kv_cache_dims():
+    """Logical dims of ``init_kv_cache``'s leaves."""
+    return {
+        "k": ("layer", "batch", "kv_heads", "seq", "head_dim"),
+        "v": ("layer", "batch", "kv_heads", "seq", "head_dim"),
+        "pos_ids": ("layer", "batch", "seq"),
     }
 
 

@@ -4,7 +4,9 @@ Parameters are plain nested dicts (and lists) of tensors in the JAX
 package's layout. Random initializers draw from an explicit
 ``torch.Generator`` on the parameters' device; they give other numbers than
 ``jax.random`` from the same seed, so the tests carry the JAX parameters
-across (``models.model.params_from_jax``) instead.
+across (``models.model.params_from_jax``) instead. On the ``meta``
+device a ``MetaGenerator`` takes the generator's place, so a model's
+shapes come without memory (``runtime/sharding.py`` sizes grok-1 so).
 """
 from __future__ import annotations
 
@@ -42,22 +44,57 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def dense_init(gen: torch.Generator, shape, in_axis_size=None,
-               dtype=torch.float32):
-    """Normal weights scaled by 1/sqrt(fan_in), on ``gen``'s device."""
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` where parameters are made on the
+    ``meta`` device (``torch.Generator`` has none): the initializers then
+    give tensors of the right shapes and dtypes, with no memory and no
+    draws."""
+
+    device = torch.device("meta")
+
+
+def randn(gen, shape, dtype=torch.float32):
+    """Standard normal draws from ``gen`` on its device; on a
+    ``MetaGenerator``, a meta tensor of that shape."""
+    draws = None if gen.device.type == "meta" else gen
+    return torch.randn(tuple(shape), generator=draws, dtype=dtype,
+                       device=gen.device)
+
+
+def dense_init(gen, shape, in_axis_size=None, dtype=torch.float32):
+    """Normal weights scaled by 1/sqrt(fan_in), on ``gen``'s device (a
+    meta tensor is left unscaled: it has no values, and the product costs
+    more on ``meta`` than the draw)."""
     fan_in = in_axis_size if in_axis_size is not None else shape[0]
     scale = 1.0 / math.sqrt(max(fan_in, 1))
-    return torch.randn(tuple(shape), generator=gen, dtype=dtype,
-                       device=gen.device) * scale
+    w = randn(gen, shape, dtype)
+    return w if w.is_meta else w * scale
 
 
-def tree_map(fn, tree):
-    """``fn`` applied to every leaf of a tree of dicts and lists."""
+def is_dims(x) -> bool:
+    """A leaf of a logical-dims tree or a sharding spec: a tuple of axis
+    names, ``None`` or tuples of names (JAX's ``is_leaf`` for them)."""
+    return isinstance(x, tuple) and all(
+        d is None or isinstance(d, str)
+        or (isinstance(d, tuple) and all(isinstance(a, str) for a in d))
+        for d in x)
+
+
+def tree_map(fn, tree, *rest, is_leaf=None):
+    """``fn`` applied to every leaf of a tree of dicts and lists (and
+    tuples, unless ``is_leaf`` takes them). Trees in ``rest`` are walked
+    alongside: ``fn(leaf, *their subtrees at its place)``, as
+    ``jax.tree.map`` with several trees."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest), is_leaf=is_leaf)
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
 
 
 def tree_leaves(tree) -> list:

@@ -51,6 +51,21 @@ def init_mamba(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def mamba_dims(cfg: ModelConfig):
+    """Logical dims of ``init_mamba``'s leaves (``runtime/sharding.py``)."""
+    return {
+        "in_proj": ("d_model", "d_inner2"),
+        "conv_w": ("conv_k", "d_inner"),
+        "conv_b": ("d_inner",),
+        "x_proj": ("d_inner", "dt_plus"),
+        "dt_proj": ("dt_rank", "d_inner"),
+        "dt_bias": ("d_inner",),
+        "A_log": ("d_inner", "ssm_state"),
+        "D": ("d_inner",),
+        "out_proj": ("d_inner", "d_model"),
+    }
+
+
 def _ssm_inputs(p, x, cfg: ModelConfig):
     """Shared pre-scan projection. x (B,S,D) → (xr, z), each (B,S,d_inner)."""
     xz = x @ p["in_proj"].to(x.dtype)                   # (B,S,2di)
@@ -225,6 +240,12 @@ def init_ssm_cache(cfg: ModelConfig, n_layers: int, batch: int,
         "conv": torch.zeros((n_layers, batch, K - 1, di), dtype=dtype,
                             device=device),
     }
+
+
+def ssm_cache_dims():
+    """Logical dims of ``init_ssm_cache``'s leaves."""
+    return {"h": ("layer", "batch", "d_inner", "ssm_state"),
+            "conv": ("layer", "batch", "conv_k", "d_inner")}
 
 
 def mamba_decode_step(p, x, cache_l, cfg: ModelConfig):

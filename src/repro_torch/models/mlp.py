@@ -26,6 +26,14 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig):
     return {"w1": dense_init(gen, (D, F_)), "w2": dense_init(gen, (F_, D))}
 
 
+def mlp_dims(cfg: ModelConfig):
+    """Logical dims of ``init_mlp``'s leaves (``runtime/sharding.py``)."""
+    if cfg.mlp_type in ("swiglu", "geglu"):
+        return {"wg": ("d_model", "d_ff"), "wu": ("d_model", "d_ff"),
+                "wd": ("d_ff", "d_model")}
+    return {"w1": ("d_model", "d_ff"), "w2": ("d_ff", "d_model")}
+
+
 def mlp_forward(p, x, cfg: ModelConfig):
     dt = x.dtype
     if cfg.mlp_type in ("swiglu", "geglu"):

@@ -20,6 +20,11 @@ checkpoints: every block kind trains. A configuration with ``cond_len``
 (B, cond_len, cond_dim)) takes ``cond`` in ``forward``, ``prefill``,
 ``decode_step``, ``greedy_decode`` and the batch of ``loss``, cast to the
 compute dtype.
+
+``param_dims`` and ``cache_dims`` name every leaf's dims for the sharding
+rules (``runtime/sharding.py``), and ``input_specs`` gives meta stand-ins
+for a shape's inputs; ``Model(cfg, device="meta").init()`` gives every
+parameter's shape and dtype without memory.
 """
 from __future__ import annotations
 
@@ -29,14 +34,24 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.configs.base import ATTENTION_IMPLS, ModelConfig
-from repro_torch.models.common import DTYPES, cast_tree, make_rope, rms_norm, tree_map
+from repro_torch.configs.base import ATTENTION_IMPLS, ModelConfig, ShapeConfig
+from repro_torch.models.common import (
+    DTYPES,
+    MetaGenerator,
+    cast_tree,
+    make_rope,
+    randn,
+    rms_norm,
+    tree_map,
+)
 from repro_torch.models.transformer import (
     check_kind,
     init_segment,
     init_segment_cache,
     run_segment,
     run_segment_decode,
+    segment_cache_dims,
+    segment_dims,
 )
 from repro_torch.utils.device import resolve_device
 
@@ -57,21 +72,32 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------ init
     def init(self, seed: int = 0):
-        """Random parameters from ``seed``, drawn on the model's device."""
+        """Random parameters from ``seed``, drawn on the model's device; on
+        the ``meta`` device, their shapes and dtypes only."""
         cfg = self.cfg
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        gen = (MetaGenerator() if self.device.type == "meta" else
+               torch.Generator(device=self.device).manual_seed(seed))
         params = {
-            "embed": torch.randn((cfg.vocab_size, cfg.d_model), generator=gen,
-                                 device=self.device) * 0.02,
+            "embed": randn(gen, (cfg.vocab_size, cfg.d_model)) * 0.02,
             "final_norm": torch.zeros((cfg.d_model,), device=self.device),
             "segments": [init_segment(gen, kind, count, cfg)
                          for kind, count in cfg.plan],
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = torch.randn(
-                (cfg.d_model, cfg.vocab_size), generator=gen,
-                device=self.device) * 0.02
+            params["lm_head"] = randn(gen, (cfg.d_model, cfg.vocab_size)) * 0.02
         return cast_tree(params, DTYPES[cfg.param_dtype])
+
+    def param_dims(self):
+        """The logical dims of every parameter (``runtime/sharding.py``)."""
+        cfg = self.cfg
+        dims = {
+            "embed": ("vocab", "d_model"),
+            "final_norm": ("d_model",),
+            "segments": [segment_dims(kind, cfg) for kind, _ in cfg.plan],
+        }
+        if not cfg.tie_embeddings:
+            dims["lm_head"] = ("d_model", "vocab")
+        return dims
 
     def _tokens(self, tokens) -> torch.Tensor:
         if not isinstance(tokens, torch.Tensor):
@@ -138,6 +164,10 @@ class Model(nn.Module):
                                    dtype=dtype, device=self.device)
                 for kind, count in self.cfg.plan]
 
+    def cache_dims(self):
+        """The logical dims of every cache leaf (``init_cache``'s tree)."""
+        return [segment_cache_dims(kind) for kind, _ in self.cfg.plan]
+
     def decode_step(self, params, cache, tokens, pos, cond=None):
         """tokens (B,), pos an int or a (B,) per-row position vector, cond
         (B, cond_len, cond_dim) where the plan has ``cross`` layers →
@@ -160,6 +190,34 @@ class Model(nn.Module):
         x = rms_norm(x, params["final_norm"])
         logits = x[:, 0].to(torch.float32) @ self._head(params).to(torch.float32)
         return logits, cache
+
+
+    # ---------------------------------------------------------- input specs
+    def input_specs(self, shape: ShapeConfig,
+                    per_host_batch: Optional[int] = None) -> dict:
+        """Meta tensors standing in for every model input of ``shape``
+        (the JAX package's ``ShapeDtypeStruct`` stand-ins): tokens and
+        labels (train), tokens (prefill), tokens and pos (decode), and
+        cond where the config has a conditioning length."""
+        cfg = self.cfg
+        B = per_host_batch or shape.global_batch
+
+        def meta(shp, dtype):
+            return torch.empty(shp, dtype=dtype, device="meta")
+
+        specs = {}
+        if shape.kind == "train":
+            specs["tokens"] = meta((B, shape.seq_len), torch.int32)
+            specs["labels"] = meta((B, shape.seq_len), torch.int32)
+        elif shape.kind == "prefill":
+            specs["tokens"] = meta((B, shape.seq_len), torch.int32)
+        else:
+            specs["tokens"] = meta((B,), torch.int32)
+            specs["pos"] = meta((), torch.int32)
+        if cfg.cond_len:
+            specs["cond"] = meta((B, cfg.cond_len, cfg.cond_dim),
+                                 DTYPES[cfg.dtype])
+        return specs
 
 
 def greedy_decode(model: Model, params, prompt_tokens, n_new: int, cond=None,

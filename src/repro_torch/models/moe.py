@@ -38,6 +38,16 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig):
     }
 
 
+def moe_dims(cfg: ModelConfig):
+    """Logical dims of ``init_moe``'s leaves (``runtime/sharding.py``)."""
+    return {
+        "router": ("d_model", "experts"),
+        "wg": ("experts", "d_model", "d_ff"),
+        "wu": ("experts", "d_model", "d_ff"),
+        "wd": ("experts", "d_ff", "d_model"),
+    }
+
+
 def route(p, x, k: int):
     """Top-k routing of x (..., D): (weights, experts), each (..., k); the
     weights renormalised to sum to 1, equal probabilities ordered by expert

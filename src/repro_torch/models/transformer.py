@@ -22,21 +22,25 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (
+    attention_dims,
     cross_attention,
     decode_self_attention,
     init_attention,
     init_kv_cache,
+    kv_cache_dims,
     self_attention,
 )
-from repro_torch.models.common import rms_norm, stacked
+from repro_torch.models.common import is_dims, rms_norm, stacked, tree_map
 from repro_torch.models.mamba import (
     init_mamba,
     init_ssm_cache,
     mamba_decode_step,
+    mamba_dims,
     mamba_forward,
+    ssm_cache_dims,
 )
-from repro_torch.models.mlp import init_mlp, mlp_forward
-from repro_torch.models.moe import init_moe, moe_forward
+from repro_torch.models.mlp import init_mlp, mlp_dims, mlp_forward
+from repro_torch.models.moe import init_moe, moe_dims, moe_forward
 
 PORTED_KINDS = ("dense", "moe", "cross", "ssm", "hybrid_swa", "hybrid_full")
 ATTN_KINDS = {"dense", "moe", "cross", "hybrid_swa", "hybrid_full"}
@@ -59,7 +63,7 @@ def _window(kind: str, cfg: ModelConfig) -> Optional[int]:
 # per-layer init
 # ---------------------------------------------------------------------------
 
-def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig):
+def init_block(gen, kind: str, cfg: ModelConfig):
     check_kind(kind)
 
     def zeros():
@@ -85,8 +89,37 @@ def init_block(gen: torch.Generator, kind: str, cfg: ModelConfig):
     return p
 
 
-def init_segment(gen: torch.Generator, kind: str, count: int, cfg: ModelConfig):
+def block_dims(kind: str, cfg: ModelConfig):
+    """Logical dims of ``init_block``'s leaves (``runtime/sharding.py``)."""
+    check_kind(kind)
+    d = {"norm1": ("d_model",)}
+    if kind in ATTN_KINDS:
+        d["attn"] = attention_dims(cfg)
+    if kind == "cross":
+        d["xattn"] = attention_dims(cfg, cross=True)
+        d["norm_x"] = ("d_model",)
+    if kind in SSM_KINDS:
+        d["mamba"] = mamba_dims(cfg)
+    if kind.startswith("hybrid"):
+        d["norm_a"] = ("d_model",)
+        d["norm_m"] = ("d_model",)
+    if kind == "moe":
+        d["moe"] = moe_dims(cfg)
+        d["norm2"] = ("d_model",)
+    elif kind != "ssm":
+        d["mlp"] = mlp_dims(cfg)
+        d["norm2"] = ("d_model",)
+    return d
+
+
+def init_segment(gen, kind: str, count: int, cfg: ModelConfig):
     return stacked(lambda g: init_block(g, kind, cfg), gen, count)
+
+
+def segment_dims(kind: str, cfg: ModelConfig):
+    """``block_dims`` with the segment's leading ``layer`` dim."""
+    return tree_map(lambda dims: ("layer",) + dims, block_dims(kind, cfg),
+                    is_leaf=is_dims)
 
 
 def _layer(seg_params, i: int):
@@ -167,6 +200,16 @@ def init_segment_cache(kind: str, count: int, cfg: ModelConfig, batch: int,
                                 device=device)
     if kind in SSM_KINDS:
         c["ssm"] = init_ssm_cache(cfg, count, batch, dtype=dtype, device=device)
+    return c
+
+
+def segment_cache_dims(kind: str):
+    """Logical dims of ``init_segment_cache``'s leaves."""
+    c = {}
+    if kind in ATTN_KINDS:
+        c["kv"] = kv_cache_dims()
+    if kind in SSM_KINDS:
+        c["ssm"] = ssm_cache_dims()
     return c
 
 

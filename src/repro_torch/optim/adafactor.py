@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import tree_leaves, tree_map
+from repro_torch.models.common import is_dims, tree_leaves, tree_map
 from repro_torch.optim.adamw import Optimizer
 
 
@@ -43,6 +43,20 @@ def _factors(p):
         return {"vr": _zeros(p.shape[:-1], p),
                 "vc": _zeros(p.shape[:-2] + p.shape[-1:], p)}
     return {"v": _zeros(p.shape, p)}
+
+
+def _state_dims(param_dims, has_master=False):
+    """The state's logical dims: a ≥ 2-dim leaf's ``vr`` drops its last
+    dim and ``vc`` its second to last, a 1-dim leaf's ``v`` keeps its."""
+    def fdims(d):
+        if len(d) >= 2:
+            return {"vr": tuple(d[:-1]), "vc": tuple(d[:-2]) + (d[-1],)}
+        return {"v": tuple(d)}
+
+    d = {"f": tree_map(fdims, param_dims, is_leaf=is_dims)}
+    if has_master:
+        d["master"] = param_dims
+    return d
 
 
 def _zeros(shape, p):
@@ -137,7 +151,7 @@ def adafactor(decay=0.99, eps=1e-30, clip_threshold=1.0,
                 update_vector(g, f, p, w, lr)
         return params, state
 
-    return Optimizer(init=_init, update=update)
+    return Optimizer(init=_init, update=update, state_dims=_state_dims)
 
 
 def adafactor_ref(decay=0.99, eps=1e-30, clip_threshold=1.0,
@@ -174,7 +188,7 @@ def adafactor_ref(decay=0.99, eps=1e-30, clip_threshold=1.0,
                 p.copy_(w)
         return params, state
 
-    return Optimizer(init=_init, update=update)
+    return Optimizer(init=_init, update=update, state_dims=_state_dims)
 
 
 __all__ = ["adafactor", "adafactor_ref"]

@@ -10,7 +10,9 @@ with t = step + 1. When any parameter is bf16 the state holds a float32
 ``update`` writes the new moments, masters and parameters into the given
 tensors in place (no second copy of the state exists during a step) and
 returns the same trees. ``torch.optim.AdamW`` is not used: its state layout
-and its master-copy handling differ.
+and its master-copy handling differ. ``state_dims`` maps the parameters'
+logical dims to the state's, for the sharding rules
+(``runtime/sharding.py``).
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ from repro_torch.models.common import tree_leaves, tree_map
 
 @dataclass(frozen=True)
 class Optimizer:
-    init: Callable       # params → state
-    update: Callable     # (grads, state, params, step, lr) → (params, state)
+    init: Callable        # params → state
+    update: Callable      # (grads, state, params, step, lr) → (params, state)
+    state_dims: Callable  # (param_dims, has_master) → the state's dims tree
 
 
 def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
@@ -55,7 +58,15 @@ def adamw(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1) -> Optimizer:
                 p.copy_(w)
         return params, state
 
-    return Optimizer(init=init, update=update)
+    return Optimizer(init=init, update=update, state_dims=_state_dims)
+
+
+def _state_dims(param_dims, has_master=False):
+    """The state's logical dims: each moment's leaf has its parameter's."""
+    d = {"m": param_dims, "v": param_dims}
+    if has_master:
+        d["master"] = param_dims
+    return d
 
 
 def _zeros_f32(p):

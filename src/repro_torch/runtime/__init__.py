@@ -7,7 +7,8 @@ from repro_torch.runtime.train_loop import (
     init_train_state,
     make_train_step,
     train,
+    train_state_dims,
 )
 
 __all__ = ["FaultInjector", "Request", "ServeLoop", "StepMonitor",
-           "init_train_state", "make_train_step", "train"]
+           "init_train_state", "make_train_step", "train", "train_state_dims"]

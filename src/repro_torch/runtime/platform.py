@@ -26,11 +26,21 @@ flag it takes effect at any time: a mesh reads it when it is built.
 Not ported: ``set_platform`` writes XLA flags read when JAX's backend
 starts. It has no torch counterpart: the port picks its device per entry
 point through ``utils.device.resolve_device``.
+
+``process_group`` opens the ``torch.distributed`` world of the LM's
+multi-rank half (``runtime/sharding.py``, ``runtime/pipeline_parallel.py``,
+``optim/compression.py``), one process a rank: ``gloo`` on the CPU,
+``nccl`` on the card, rendezvous through a ``file://`` store in a
+directory the caller names (never a fixed TCP port, so worlds started side
+by side do not collide), closed when the block ends. Nothing falls back:
+a failed ``nccl`` start raises.
 """
 from __future__ import annotations
 
 import json
 import os
+from contextlib import contextmanager
+from datetime import timedelta
 from typing import Callable, Iterable, Optional
 
 import torch
@@ -140,5 +150,37 @@ def autotune(
     return out
 
 
+@contextmanager
+def process_group(rank: int, world_size: int, store_dir: str, device=None,
+                  timeout_s: float = 120.0):
+    """Open this process's rank of a ``world_size``-rank world for the
+    block and yield its device: ``gloo`` for ``device="cpu"``, ``nccl``
+    for the card (``None``; rank r takes ``cuda:r`` unless ``device``
+    names an index). Every rank passes the same ``store_dir``; the store
+    file in it must be new to this world. The group is destroyed when the
+    block ends, also on an error."""
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank if dev.index is None else dev.index)
+        torch.cuda.set_device(dev)
+        backend = "nccl"
+    elif dev.type == "cpu":
+        backend = "gloo"
+    else:
+        raise ValueError(f"no process-group backend for {dev}")
+    os.makedirs(store_dir, exist_ok=True)
+    store = os.path.join(os.path.abspath(store_dir), "store")
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world_size,
+                            timeout=timedelta(seconds=timeout_s))
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
 __all__ = ["AUTOTUNE_DIR", "autotune", "device_key", "host_device_count",
-           "load_autotune", "local_devices", "set_host_device_count"]
+           "load_autotune", "local_devices", "process_group",
+           "set_host_device_count"]

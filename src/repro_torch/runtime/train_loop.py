@@ -82,6 +82,18 @@ def init_train_state(model, optimizer, seed: int = 0):
             "step": torch.zeros((), dtype=torch.int64, device=model.device)}
 
 
+def train_state_dims(model, optimizer):
+    """The logical dims of ``init_train_state``'s tree, for the sharding
+    rules (``runtime/sharding.py``): the parameters', the optimizer
+    state's (with the float32 master copy where the parameters are
+    bfloat16) and ``()`` for the scalar step."""
+    pd = model.param_dims()
+    has_master = model.cfg.param_dtype == "bfloat16"
+    return {"params": pd,
+            "opt": optimizer.state_dims(pd, has_master=has_master),
+            "step": ()}
+
+
 # ---------------------------------------------------------------------------
 # straggler monitoring
 # ---------------------------------------------------------------------------
