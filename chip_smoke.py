@@ -30,7 +30,7 @@ one-rank ``nccl`` world — and
 checks them phase by phase; any failure exits non-zero. Phases 18, 25
 and 13–16 run right after phase 6, while the full pass's store is still in
 memory; then phase 17 on a corpus of its own, phases 19 and 20, then
-phases 7–12, then phases 21–24, then phase 26.
+phases 7–12, then phases 21–24, then phases 26 and 27.
 Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -328,7 +328,7 @@ Phases:
      one device; (d) ``distributed_pair_scores`` on 2×2 (data, model) and
      2×1×2 (pod, data, model) meshes against the one-device product. B1's
      ``launches_by_path`` add the phase's mesh launches;
- 26. the LM's multi-rank half (last), in a one-rank ``nccl`` world opened
+ 26. the LM's multi-rank half, in a one-rank ``nccl`` world opened
      through ``runtime.platform.process_group`` (a ``file://`` store in a
      temporary directory) with a (1, 1) ``data`` × ``model``
      ``DeviceMesh``, closed at the end: (a) ``pipeline_apply`` of
@@ -342,7 +342,20 @@ Phases:
      full width and 2 of 16 layers saved and restored as ``DTensor``s
      placed by ``model_shardings``' specs, bit-equal, the local shards'
      bytes equal to ``sharded_bytes``; (d) the phase's seconds (budget 30)
-     and peak memory.
+     and peak memory;
+ 27. the dry run (last; ``launch/dryrun.py`` on the ``meta`` device, no
+     step on the card): B4, B5 and B6 called on ``meta`` tensors at phase
+     9's and phase 12's shapes give the kernels' output shapes and
+     dtypes, launch nothing and report the operations the bounds of
+     phases 9 and 12 count (``ops.flash_counts``, and counted again by
+     hand in the phase); ``run_cell`` on the
+     card's own (1, 1) mesh for the Llama training step (phase 11), the
+     Llama bf16 prefill (phase 8) and falcon-mamba-7b's Adafactor step
+     (phase 22c), each dry-run peak within 15 % of the peak that phase
+     measured, and the Llama step's counted FLOPs over phase 12's model
+     FLOPs; grok-1-314b × train_4k × single and the copyscore cell on
+     both production meshes, printed as ``CELLRESULT`` lines; the phase's
+     seconds, failing over its budget of 30.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -954,7 +967,8 @@ def phase_llama(torch, np, dev, ops) -> dict:
         del loop, m
         gc.collect()
         torch.cuda.empty_cache()
-    return {"launches": launches, "prefill_s": prefill_s}
+    return {"launches": launches, "prefill_s": prefill_s,
+            "peak": prefill_peak}
 
 
 def _serve(torch, ServeLoop, Request, model, params, prompts, dtype,
@@ -1023,8 +1037,8 @@ def phase_flash_timing(torch, dev, ops, ref, card, llama) -> dict:
     library = "scaled_dot_product_attention(is_causal=True, enable_gqa=True)"
     library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 20)
-    ops_n = 4 * B * Hq * D * S * (S + 1) // 2        # visible (q, k) pairs only
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * S
+    # visible (q, k) pairs only: the count the meta branch reports too
+    ops_n, nbytes = ops.flash_counts("fwd", q.shape, k.shape, 2, causal=True)
     t_ops, t_bytes = ops_n / BF16_OPS * 1e3, nbytes / HBM_BPS * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if bound_ms == t_ops else "bytes"
@@ -1034,7 +1048,7 @@ def phase_flash_timing(torch, dev, ops, ref, card, llama) -> dict:
         f"{library_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} "
         f"({ops_n} operations {t_ops:.4f} ms at bf16 peak, {nbytes} B "
         f"{t_bytes:.4f} ms)")
-    pairs = B * Hq * S * (S + 1) // 2
+    pairs = B * Hq * ops.visible_pairs(S, S)
     split_n = pairs * 2 * (3 * D + 16)      # q·kᵀ, hi·v, lo·v, ones for l
     log(f"[9] bf16 kernel's tensor operations with the split (q·kᵀ, then "
         f"P·v as hi·v + lo·v, and l as P·1 in the same two passes): "
@@ -1050,6 +1064,7 @@ def phase_flash_timing(torch, dev, ops, ref, card, llama) -> dict:
             raise AssertionError("a timing is not a positive number")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": d_o,
+            "ops": ops_n,
             "head_dim_256": _gemma_fwd_timing(torch, dev, ops, ref, card)}
 
 
@@ -1080,9 +1095,8 @@ def _gemma_fwd_timing(torch, dev, ops, ref, card) -> dict:
         q, k, v, causal=True), 3)
     sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True), 20)
-    pairs = B * Hq * S * (S + 1) // 2
-    ops_n = 4 * D * pairs
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * S
+    pairs = B * Hq * ops.visible_pairs(S, S)
+    ops_n, nbytes = ops.flash_counts("fwd", q.shape, k.shape, 2, causal=True)
     bound_ms, bound_by = _bf16_bound(ops_n, nbytes)
     split_n = pairs * 2 * (3 * D + 16)
     log(f"[9] B4 at gemma-2b's prefill shapes B={B} Hq={Hq} Hkv={Hkv} S={S} "
@@ -1120,8 +1134,7 @@ def _gemma_bwd_timing(torch, dev, ops, ref, card) -> dict:
                                   True, None)
     args = (q, k, v, do, lse, delta)
     out = {}
-    pairs = B * Hq * S * (S + 1) // 2
-    qb, kvb, stat = 2 * q.numel(), 2 * k.numel(), 4 * lse.numel()
+    pairs = B * Hq * ops.visible_pairs(S, S)
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
     res = F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
     backend = type(res.grad_fn).__name__
@@ -1131,16 +1144,17 @@ def _gemma_bwd_timing(torch, dev, ops, ref, card) -> dict:
     # 2·D; dk/dv at D = 256 recomputes Sᵀ and dPᵀ in both column halves
     # (4 passes of 2·D) and runs dV and dK as hi + lo over D/2 columns in
     # each (8 passes of 2·D/2)
-    for name, fn, plain, n_prod, nbytes, split, err in (
+    for name, fn, plain, split, err in (
             ("dq", ops.flash_attention_bwd_dq, ref.flash_attention_bwd_dq_torch,
-             3, 3 * qb + 2 * kvb + 2 * stat, 4 * 2 * D, e_dq),
+             4 * 2 * D, e_dq),
             ("dkv", ops.flash_attention_bwd_dkv,
-             ref.flash_attention_bwd_dkv_torch, 4, 2 * qb + 4 * kvb + 2 * stat,
+             ref.flash_attention_bwd_dkv_torch,
              2 * (2 * 2 * D + 4 * 2 * D // 2), e_dkv)):
         ms = _time_ms(torch, lambda: fn(*args, **kw), 10)
         dev_ms = _device_ms(torch, lambda: fn(*args, **kw), 10)
         plain_ms = _time_ms(torch, lambda: plain(*args, **kw), 2)
-        ops_n = n_prod * 2 * D * pairs
+        ops_n, nbytes = ops.flash_counts(name, q.shape, k.shape, 2,
+                                         causal=True)
         bound_ms, bound_by = _bf16_bound(ops_n, nbytes)
         log(f"[12] {name} at gemma-2b's training shapes B={B} Hq={Hq} "
             f"Hkv={Hkv} S={S} D={D} bf16 causal ({card}): kernel vs plain max "
@@ -1405,7 +1419,7 @@ def phase_train(torch, ops) -> dict:
     return {"launches": {"fwd": sum(c[0] for c in per_step),
                          "dq": sum(c[1] for c in per_step),
                          "dkv": sum(c[2] for c in per_step)},
-            "step_s": step_s, "n_layers": n, "cfg": cfg}
+            "step_s": step_s, "n_layers": n, "cfg": cfg, "peak": peak}
 
 
 def _profile_step(torch, cfg, batch, top: int = 12) -> None:
@@ -1494,15 +1508,15 @@ def phase_flash_bwd_timing(torch, dev, ops, ref, card, training) -> dict:
     backend = type(out.grad_fn).__name__
     sdpa_ms = _time_ms(torch, lambda: torch.autograd.grad(
         out, leaves, do, retain_graph=True), 10)
-    pairs = B * Hq * S * (S + 1) // 2                # visible (q, k) pairs
-    qb, kvb, stat = 2 * q.numel(), 2 * k.numel(), 4 * lse.numel()
+    pairs = B * Hq * ops.visible_pairs(S, S)         # visible (q, k) pairs
     bounds = {}
-    for name, n_prod, nbytes in (("dq", 3, 3 * qb + 2 * kvb + 2 * stat),
-                                 ("dkv", 4, 2 * qb + 4 * kvb + 2 * stat)):
-        flops = n_prod * 2 * D * pairs
+    for name in ("dq", "dkv"):
+        flops, nbytes = ops.flash_counts(name, q.shape, k.shape, 2,
+                                         causal=True)
         t_ops, t_bytes = flops / BF16_OPS * 1e3, nbytes / HBM_BPS * 1e3
         bound = max(t_ops, t_bytes)
-        bounds[name] = (bound, "operations" if bound == t_ops else "bytes")
+        bounds[name] = (bound, "operations" if bound == t_ops else "bytes",
+                        flops)
         log(f"[12] {name} bound {bound:.4f} ms by {bounds[name][1]} ({flops} "
             f"operations {t_ops:.4f} ms at bf16 peak, {nbytes} B {t_bytes:.4f} ms)")
     split_dq = 4 * 2 * D * pairs
@@ -1547,7 +1561,9 @@ def phase_flash_bwd_timing(torch, dev, ops, ref, card, training) -> dict:
             "dkv": {"ms": dkv_ms, "plain_ms": dkv_plain,
                     "bound_ms": bounds["dkv"][0], "bound_by": bounds["dkv"][1],
                     "library_ms": sdpa_ms, "max_abs_err": e_dkv,
-                    "head_dim_256": gemma["dkv"]}}
+                    "head_dim_256": gemma["dkv"]},
+            # the bounds' operation counts, for phase 27 (not in the record)
+            "ops": {"dq": bounds["dq"][2], "dkv": bounds["dkv"][2]}}
 
 
 def _single_inputs(torch, dev, seed, S_i, S_j, n_e, w):
@@ -3439,12 +3455,6 @@ def phase_truth(torch, np, dev, ops, spec=None) -> dict:
     return {"launches": launches}
 
 
-def _visible_pairs(S: int, window) -> int:
-    """(query, key) pairs a causal head of S rows sees under ``window``."""
-    w = S if window is None else min(window, S)
-    return w * (w + 1) // 2 + (S - w) * w
-
-
 def phase_mamba(torch, np, dev, ops, ref, card) -> dict:
     """Phase 21: falcon-mamba-7b and hymba-1.5b served at full width and
     depth, then B4 at hymba's attention shapes. Returns B4's launches in
@@ -3615,9 +3625,9 @@ def phase_mamba(torch, np, dev, ops, ref, card) -> dict:
         mask = ref._visible(S, S, True, w, dev)
         sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), 20)
-        pairs = _visible_pairs(S, w)
-        ops_n = 4 * D * pairs * B * Hq
-        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * S
+        pairs = ops.visible_pairs(S, S, True, w)
+        ops_n, nbytes = ops.flash_counts("fwd", q.shape, k.shape, 2,
+                                         causal=True, window=w)
         t_ops, t_bytes = ops_n / BF16_OPS * 1e3, nbytes / HBM_BPS * 1e3
         bound_ms = max(t_ops, t_bytes)
         per_layer[name] = (ms, plain_ms, sdpa_ms, bound_ms)
@@ -3832,6 +3842,7 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
 
     hymba_launches = None
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    peaks = {}                          # arch → peak device memory
     for arch, (B, S, steps, opt_name) in SSM_TRAIN.items():
         cfg = get_config(arch)
         n_attn = sum(k for kd, k in cfg.plan if kd != "ssm")
@@ -3859,7 +3870,7 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
         if failed:
             raise AssertionError(f"{arch}: {len(failed)} training steps failed "
                                  f"and were retried: {failed[0]}")
-        peak = torch.cuda.max_memory_allocated()
+        peak = peaks[arch] = torch.cuda.max_memory_allocated()
         n_params, n_active = count_params(state["params"])
         want = (2 * n_attn, n_attn, n_attn)
         if per_step != [want] * steps:
@@ -3976,12 +3987,11 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
         backend = type(out.grad_fn).__name__
         sdpa_ms = _time_ms(torch, lambda: torch.autograd.grad(
             out, leaves, do, retain_graph=True), 10)
-        pairs = B * Hq * _visible_pairs(S, w)
-        qb, kvb, stat = 2 * q.numel(), 2 * k.numel(), 4 * lse.numel()
         bounds = {}
-        for kname, n_prod, nbytes in (("dq", 3, 3 * qb + 2 * kvb + 2 * stat),
-                                      ("dkv", 4, 2 * qb + 4 * kvb + 2 * stat)):
-            t_ops = n_prod * 2 * D * pairs / BF16_OPS * 1e3
+        for kname in ("dq", "dkv"):
+            flops, nbytes = ops.flash_counts(kname, q.shape, k.shape, 2,
+                                             causal=True, window=w)
+            t_ops = flops / BF16_OPS * 1e3
             t_bytes = nbytes / HBM_BPS * 1e3
             bounds[kname] = (max(t_ops, t_bytes),
                              "operations" if t_ops >= t_bytes else "bytes")
@@ -3995,7 +4005,8 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
             f"bound {bounds['dkv'][0]:.4f} by {bounds['dkv'][1]}); backward "
             f"of scaled_dot_product_attention(attn_mask=the same boolean "
             f"mask, enable_gqa=True) {sdpa_ms:.4f} ms ({backend}; dq, dk and "
-            f"dv together); {_visible_pairs(S, w)} visible pairs a head")
+            f"dv together); {ops.visible_pairs(S, S, True, w)} visible "
+            f"pairs a head")
         for x in per_layer[lname]:
             if not math.isfinite(x) or x <= 0:
                 raise AssertionError("a timing is not a positive number")
@@ -4011,7 +4022,8 @@ def phase_ssm_train(torch, np, dev, ops, ref, card) -> dict:
         f" dk/dv {tot[1]:.3f} ms (plain {tot[3]:.3f}, bound {tot[6]:.3f}); "
         f"SDPA's backward {tot[4]:.3f} ms")
     log(f"[22] phase 22: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": hymba_launches, "grok_cli": grok_launches}
+    return {"launches": hymba_launches, "grok_cli": grok_launches,
+            "peaks": peaks}
 
 
 def _rise_measured(torch, opt):
@@ -4380,9 +4392,8 @@ def phase_xserve(torch, np, dev, ops, ref, card) -> dict:
                 q, k, v, causal=causal), 3)
             sdpa_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
                 q, k, v, is_causal=causal, enable_gqa=Hq != Hkv), 20)
-            pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
-            ops_n = 4 * D * pairs * B * Hq
-            nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * Hq * Sq
+            ops_n, nbytes = ops.flash_counts("fwd", q.shape, k.shape, 2,
+                                             causal=causal)
             t_ops, t_bytes = ops_n / BF16_OPS * 1e3, nbytes / HBM_BPS * 1e3
             bound_ms = max(t_ops, t_bytes)
             on_card[arch, name] = dev_ms
@@ -4817,6 +4828,146 @@ def phase_lm_mesh(torch, np, dev, ops, card) -> dict:
     return {"launches": launches}
 
 
+# phase 27: the dry run (launch/dryrun.py) on the card's own (1, 1) mesh,
+# for three steps this run has just measured; its memory peak within this
+# share of the card's (torch.cuda.max_memory_allocated after a reset)
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_BUDGET_S = 30.0
+# the production-mesh cells it prints, as the CLI gives them
+DRYRUN_CELLS = (("grok-1-314b", "train_4k", "single"),
+                ("copyscore", "pairscore", "single"),
+                ("copyscore", "pairscore", "multi"))
+
+
+def _meta_branches(torch, dev, ops, counts) -> None:
+    """(27) B4, B5 and B6 on ``meta`` tensors at phase 9's and phase 12's
+    shapes: outputs of the kernels' shapes and dtypes, no launch, and the
+    operations ``ops.flash_counts`` gives the bounds (``counts``, the ones
+    phases 9 and 12 used)."""
+    from repro_torch.utils.costs import recording
+
+    class Rec:
+        def __init__(self):
+            self.got = []
+
+        def kernel(self, name, operations, nbytes):
+            self.got.append((name, operations, nbytes))
+
+        def collective(self, kind, nbytes):
+            pass
+
+    before = _count_launches(ops)
+    for which, shape in (("fwd", (PREFILL_BATCH, 32, 8, PREFILL_LEN, 64)),
+                         ("dq", (TRAIN_BATCH, 32, 8, TRAIN_LEN, 64)),
+                         ("dkv", (TRAIN_BATCH, 32, 8, TRAIN_LEN, 64))):
+        B, Hq, Hkv, S, D = shape
+        real = _flash_inputs(torch, dev, 27, B, Hq, Hkv, S, S, D, torch.bfloat16)
+        lse = torch.zeros((B, Hq, S), dtype=torch.float32, device=dev)
+        meta = [torch.empty_like(t, device="meta") for t in real]
+        mlse = torch.empty_like(lse, device="meta")
+        fn = {"fwd": ops.flash_attention_fwd, "dq": ops.flash_attention_bwd_dq,
+              "dkv": ops.flash_attention_bwd_dkv}[which]
+        args = (lambda q, k, v, l: (q, k, v)) if which == "fwd" else (
+            lambda q, k, v, l: (q, k, v, q, l, l))
+        want = fn(*args(*real, lse), causal=True)
+        before_meta = _count_launches(ops)
+        with recording(Rec()) as rec:
+            got = fn(*args(*meta, mlse), causal=True)
+        if _count_launches(ops) != before_meta:
+            raise AssertionError(f"the meta {which} call launched a kernel")
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        shapes = [(tuple(t.shape), t.dtype) for t in want]
+        if [(tuple(t.shape), t.dtype) for t in got] != shapes or not all(
+                t.is_meta for t in got):
+            raise AssertionError(f"meta {which}: {[(tuple(t.shape), t.dtype) for t in got]} "
+                                 f"!= the kernel's {shapes}")
+        (name, n_ops, nbytes), = rec.got
+        # counted here again, apart from ops.flash_counts: 2, 3 and 4
+        # products of 2·D a visible (q, k) pair, S(S+1)/2 causal pairs a head
+        by_hand = {"fwd": 2, "dq": 3, "dkv": 4}[which] * 2 * D * (
+            B * Hq * S * (S + 1) // 2)
+        if not n_ops == counts[which] == by_hand:
+            raise AssertionError(f"meta {which} recorded {n_ops} operations, "
+                                 f"the bound counts {counts[which]}, by hand "
+                                 f"{by_hand}")
+        log(f"[27] meta {name} at {shape}: outputs {shapes} as the kernel's, "
+            f"no launch, {n_ops} operations == the bound's == by hand, "
+            f"{nbytes} B")
+        del real, lse, want
+    n = tuple(a - b for a, b in zip(_count_launches(ops), before))
+    log(f"[27] the kernels' own calls for that check: launches (fwd, dq, "
+        f"dkv) {n}, counted on no path")
+
+
+def phase_dryrun(torch, dev, ops, card, peaks, model_flops, counts) -> dict:
+    """Phase 27: the port's dry run (``launch/dryrun.py``) on the card's
+    own (1, 1) mesh for the Llama training step (phase 11), the Llama
+    prefill (phase 8) and falcon-mamba-7b's Adafactor step (phase 22c),
+    each peak held against the card's measured peak; the meta branches of
+    B4–B6 against the kernels; grok-1 × train_4k × single and the
+    copyscore cell on both production meshes, printed as the CLI prints
+    them. Nothing of it runs on the card but the three kernel calls."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.runtime.sharding import AbstractMesh
+
+    t_phase = time.perf_counter()
+    log(f"[27] {card}")
+    _meta_branches(torch, dev, ops, counts)
+    one = AbstractMesh((1, 1), ("data", "model"))
+    B22, S22 = SSM_TRAIN["falcon-mamba-7b"][:2]
+    llama = get_config("llama3.2-1b")
+    steps = (("llama3.2-1b training (phase 11)", llama,
+              ShapeConfig("phase11", TRAIN_LEN, TRAIN_BATCH, "train"),
+              peaks["train"]),
+             ("llama3.2-1b bf16 prefill (phase 8)", llama,
+              ShapeConfig("phase8", PREFILL_LEN, PREFILL_BATCH, "prefill"),
+              peaks["prefill"]),
+             ("falcon-mamba-7b training (phase 22c)",
+              get_config("falcon-mamba-7b").replace(
+                  optimizer=SSM_TRAIN["falcon-mamba-7b"][3]),
+              ShapeConfig("phase22c", S22, B22, "train"), peaks["falcon"]))
+    ratios = {}
+    for name, cfg, shape, card_peak in steps:
+        t0 = time.perf_counter()
+        r = run_cell(cfg, shape, one, grad_accum=1)
+        mem = r["memory"]
+        ratio = ratios[name] = mem["peak_bytes"] / card_peak
+        log(f"[27] {name}: dry-run peak {mem['peak_bytes'] / 2**30:.3f} GiB "
+            f"({mem['method']}; arguments {mem['argument_bytes'] / 2**30:.3f}, "
+            f"temporaries {mem['temp_bytes'] / 2**30:.3f}) against the card's "
+            f"{card_peak / 2**30:.3f} GiB: ratio {ratio:.4f}; FLOPs a step "
+            f"{r['flops_per_device']:.4e}, HBM bytes "
+            f"{r['hbm_bytes_per_device']:.4e} (probes); "
+            f"{time.perf_counter() - t0:.2f} s")
+        if name.startswith("llama3.2-1b training"):
+            flops = r["flops_per_device"]
+            log(f"[27] the Llama step's counted FLOPs {flops:.4e} (the "
+                f"probes' assembly, with remat's recompute) over phase 12's "
+                f"model FLOPs {model_flops:.4e}: {flops / model_flops:.4f}")
+        if abs(ratio - 1.0) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"{name}: the dry run's peak is {ratio:.4f} "
+                                 f"of the card's, outside ±{DRYRUN_PEAK_TOL}")
+    for arch, shape_name, mesh_kind in DRYRUN_CELLS:
+        t0 = time.perf_counter()
+        r = run_cell(arch, shape_name, mesh_kind)
+        if r.get("status") != "ok":
+            raise AssertionError(f"dry run {arch} {shape_name} {mesh_kind}: "
+                                 f"{r.get('status')}")
+        log(f"[27] {arch} × {shape_name} × {mesh_kind} in "
+            f"{time.perf_counter() - t0:.2f} s: peak "
+            f"{r['memory']['peak_bytes'] / 2**30:.3f} GiB a device, "
+            f"{r['bottleneck']}-bound")
+        log("CELLRESULT" + json.dumps(r))
+    phase_s = time.perf_counter() - t_phase
+    log(f"[27] phase 27: {phase_s:.3f} s (budget {DRYRUN_BUDGET_S:.0f} s)")
+    if phase_s > DRYRUN_BUDGET_S:
+        raise AssertionError(f"phase 27 took {phase_s:.3f} s, over its "
+                             f"{DRYRUN_BUDGET_S:.0f} s budget")
+    return {"ratios": ratios, "seconds": phase_s}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5185,6 +5336,16 @@ def main() -> int:
     # -- 26. the LM's multi-rank half in a one-rank nccl world ---------------
     marks.append(("26", time.perf_counter()))
     lm_mesh = phase_lm_mesh(torch, np, dev, ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 27. the dry run on the meta device, held to the peaks above ---------
+    marks.append(("27", time.perf_counter()))
+    phase_dryrun(torch, dev, ops, card,
+                 {"train": training["peak"], "prefill": llama["peak"],
+                  "falcon": ssm_train["peaks"]["falcon-mamba-7b"]},
+                 _model_flops(training["cfg"], TRAIN_BATCH, TRAIN_LEN),
+                 {"fwd": fl["ops"], **bt["ops"]})
     # B4's launches: Llama's prefill and training, hymba's prefill and
     # training, grok's train CLI run, qwen's, musicgen's and phi's prefills
     # and musicgen's decode, gemma's prefill and the three training runs of

@@ -27,6 +27,9 @@ device, with the sum over ``pod`` in a fixed order.
     pair space: row blocks over ``data``, column blocks over ``model``, the
     entry width over ``pod`` when the mesh has one. Its body is a plain
     product (``jnp.dot`` in JAX), so here a ``torch.matmul``.
+    ``distributed_pair_scores_lowerable`` and ``run.lower`` are its dry
+    run: one entry's operand shapes and ``launch.roofline.analyze_step``'s
+    terms of its body on ``meta`` tensors, with no incidence made.
 
 ``MeshTileScan`` is the state of one pass over a mesh: the engine stages
 every chunk group into it (``core/pipeline.py:SlabRing`` places each slab
@@ -335,7 +338,9 @@ def _local_pair_scores(vr, vc, acc_r, acc_c, p_hat, s, n):
     """One entry: the C_same→ and shared-count block of its row block
     ``vr`` (S_r, K, w_q) against its column block ``vc`` (S_c, K, w_q),
     accumulated over the K buckets in order, as JAX's ``lax.scan`` does.
-    0/1 counts are exact in float32 (sums below 2²⁴)."""
+    ``p_hat`` (K, w_q) is each bucket's p̂ over its entry slice (JAX's
+    layout; p̂ is constant within a bucket). 0/1 counts are exact in
+    float32 (sums below 2²⁴)."""
     f_a1 = acc_r[:, None]
     f_a2 = acc_c[None, :]
     c_same = torch.zeros((vr.shape[0], vc.shape[0]), dtype=torch.float32,
@@ -343,7 +348,7 @@ def _local_pair_scores(vr, vc, acc_r, acc_c, p_hat, s, n):
     n_cnt = torch.zeros_like(c_same)
     for k in range(vr.shape[1]):
         count = vr[:, k].to(torch.float32) @ vc[:, k].to(torch.float32).T
-        f = score_same(p_hat[k], f_a1, f_a2, s, n)
+        f = score_same(p_hat[k, 0], f_a1, f_a2, s, n)
         c_same = c_same + f * count
         n_cnt = n_cnt + count
     return c_same, n_cnt
@@ -381,7 +386,7 @@ def distributed_pair_scores(
         w += w_pad
     v_skw = v.permute(1, 0, 2)
     acc = torch.as_tensor(acc, dtype=torch.float32)
-    p_hat = torch.as_tensor(p_hat, dtype=torch.float32)
+    p_kw = torch.as_tensor(p_hat, dtype=torch.float32)[:, None].expand(K, w)
     def blocks(n):
         return [(i, slice(int(b[0]), int(b[-1]) + 1))
                 for i, b in enumerate(np.array_split(np.arange(S), n))
@@ -402,7 +407,7 @@ def distributed_pair_scores(
                     e = slice(q * wq, (q + 1) * wq)
                     cs, nc = _local_pair_scores(
                         v_skw[r][:, :, e].to(dev), v_skw[c][:, :, e].to(dev),
-                        acc[r].to(dev), acc[c].to(dev), p_hat.to(dev),
+                        acc[r].to(dev), acc[c].to(dev), p_kw[:, e].to(dev),
                         cfg.s, cfg.n)
                     if c_blk is None:
                         c_blk, n_blk = cs, nc
@@ -413,9 +418,66 @@ def distributed_pair_scores(
                 n_out[r, c] = n_blk.to(first)
         return c_out, n_out
 
+    def lower():
+        """The dry run of ``run`` (``distributed_pair_scores_lowerable`` at
+        its shapes), without running it."""
+        return distributed_pair_scores_lowerable(
+            mesh, S, K, w - w_pad, cfg, dtype=v.dtype)
+
+    run.lower = lower
     return run
 
 
+def distributed_pair_scores_lowerable(mesh, n_sources: int, K: int,
+                                      width: int, cfg: CopyConfig,
+                                      dtype=torch.int8) -> dict:
+    """The dry run of ``distributed_pair_scores`` over (K, ``n_sources``,
+    ``width``) incidence of ``dtype`` on ``mesh`` (a ``Mesh``, or any mesh
+    ``runtime.sharding.mesh_axes`` reads, as an ``AbstractMesh`` of the
+    production shape): shapes only, so the incidence, hundreds of GB at
+    the production mesh's 131,072 sources, is never made.
+
+    Returns one entry's record: ``operands``, the shapes of its row block
+    ``vr`` (S/data, K, w/pod), column block ``vc`` (S/model, K, w/pod),
+    ``acc_r``, ``acc_c`` and ``p_hat`` (K, w/pod) (w padded to a multiple
+    of ``pod``, S cut as ``np.array_split`` cuts it: the first block is
+    the largest), and ``launch.roofline.analyze_step``'s terms of
+    ``_local_pair_scores`` run once on ``meta`` tensors of those shapes,
+    with the sum over ``pod``: two all-reduces of (S/data × S/model)
+    float32 blocks, JAX's ``psum`` pair. The JAX dry run tallies its
+    bucket scan's body once and multiplies by K; the port's body loops
+    over every bucket, so its counts need no factor."""
+    from repro_torch.launch.roofline import analyze_step
+    from repro_torch.runtime.sharding import mesh_axes
+
+    axes = mesh_axes(mesh)
+    if tuple(axes) not in (("data", "model"), ("pod", "data", "model")):
+        raise ValueError(f"distributed_pair_scores takes a (data, model) or "
+                         f"(pod, data, model) mesh, got axes {tuple(axes)}")
+    n_pod = axes.get("pod", 1)
+    w = width + pod_padding(width, n_pod)
+    wq = w // n_pod
+    s_r = -(-n_sources // axes["data"])
+    s_c = -(-n_sources // axes["model"])
+
+    def meta(*shape, dt=torch.float32):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    ops = {"vr": meta(s_r, K, wq, dt=dtype), "vc": meta(s_c, K, wq, dt=dtype),
+           "acc_r": meta(s_r), "acc_c": meta(s_c), "p_hat": meta(K, wq)}
+    calls = [("all-reduce", s_r * s_c * 4)] * 2 if n_pod > 1 else []
+    out = analyze_step(
+        lambda vr, vc, acc_r, acc_c, p: _local_pair_scores(
+            vr, vc, acc_r, acc_c, p, cfg.s, cfg.n),
+        *ops.values(), chips=int(np.prod(list(axes.values()))),
+        collectives=calls)
+    del out["result"]
+    out["operands"] = {k: tuple(t.shape) for k, t in ops.items()}
+    out["dtype"] = str(dtype).replace("torch.", "")
+    out["mesh"] = dict(axes)
+    return out
+
+
 __all__ = ["Mesh", "MeshTileScan", "distributed_pair_scores",
-           "group_tile_scores", "make_mesh", "pod_padding",
+           "distributed_pair_scores_lowerable", "group_tile_scores", "make_mesh", "pod_padding",
            "sharded_tile_scores", "sharded_tile_scores_2d"]

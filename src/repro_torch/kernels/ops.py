@@ -39,6 +39,12 @@
 ``FlashAttention``       — the ``torch.autograd.Function`` of the two: its
                            forward is ``flash_attention_fwd``, its backward
                            ``flash_attention_bwd``.
+``flash_counts``         — the operations and bytes of one call of B4, B5 or
+                           B6: 2, 3 and 4 products of 2·D a visible (query,
+                           key) pair (``visible_pairs``), each operand read
+                           once and each output written once. The bounds of
+                           ``chip_smoke.py`` and the ``meta`` branches take
+                           their counts from it.
 ``flash_attention``      — the model's attention: ``impl="kernel"`` goes
                            through ``FlashAttention``, ``impl="reference"``
                            is the plain ``ref.attention_ref``, chunked
@@ -46,6 +52,12 @@
                            on, and ``"chunked"`` / ``"chunked_unroll"`` the
                            chunked form at every length (all differentiated
                            by autograd).
+
+On a ``meta`` tensor the three flash wrappers launch nothing: they return
+outputs of the kernel's shapes and dtypes and report ``flash_counts`` to
+``utils.costs`` (the counters of ``launch.roofline.analyze_step``). That
+branch is no fallback: ``meta`` computes nothing. The copy-score wrappers
+have no such branch: no shapes-only run reaches them.
 
 ``tile_scores.launches``, ``copyscore.launches``,
 ``copyscore_tile.launches``, ``copyscore_store.launches``,
@@ -63,6 +75,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as kref
+from repro_torch.utils.costs import record_kernel
 
 _CHANNELS = 5
 
@@ -542,6 +555,52 @@ def _window(window) -> int:
     return -1 if window is None else int(window)
 
 
+@functools.lru_cache(maxsize=256)
+def visible_pairs(Sq: int, Sk: int, causal: bool = True, window=None) -> int:
+    """(query, key) pairs one head sees: key j is visible from query i iff
+    (not causal or j ≤ i) and (window is None or i − j < window), the
+    kernels' rule. Causal with Sq = Sk = S and w = min(window, S):
+    w(w + 1)/2 + (S − w)·w."""
+    i = np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(i, Sk - 1) if causal else np.full(Sq, Sk - 1, np.int64)
+    lo = np.maximum(i - int(window) + 1, 0) if window is not None else 0
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+#: Products of 2·D operations a visible pair: the forward q·kᵀ and P·v;
+#: dq also do·vᵀ; dk/dv the four of the recompute and both gradients.
+FLASH_PRODUCTS = {"fwd": 2, "dq": 3, "dkv": 4}
+
+
+def flash_counts(which: str, q_shape, k_shape, itemsize: int, *,
+                 causal: bool = True, window=None) -> tuple:
+    """(operations, bytes) of one call of the forward (``"fwd"``, B4), the
+    dq kernel (``"dq"``, B5) or the dk/dv kernel (``"dkv"``, B6) on q
+    (B, Hq, Sq, D) and k, v (B, Hkv, Sk, D) of ``itemsize`` bytes an entry.
+    Operations: ``FLASH_PRODUCTS[which]`` products of 2·D a visible pair,
+    over B·Hq heads. Bytes: each operand read once and each output written
+    once — forward q, k, v, o and lse; dq q, do, k, v, lse, delta and dq;
+    dk/dv q, do, k, v, lse, delta, dk and dv (lse and delta float32)."""
+    B, Hq, Sq, D = (int(x) for x in q_shape)
+    Hkv, Sk = int(k_shape[1]), int(k_shape[2])
+    pairs = B * Hq * visible_pairs(Sq, Sk, bool(causal),
+                                   None if window is None else int(window))
+    operations = FLASH_PRODUCTS[which] * 2 * D * pairs
+    qb, kvb = itemsize * B * Hq * Sq * D, itemsize * B * Hkv * Sk * D
+    stat = 4 * B * Hq * Sq
+    nbytes = {"fwd": 2 * qb + 2 * kvb + stat,
+              "dq": 3 * qb + 2 * kvb + 2 * stat,
+              "dkv": 2 * qb + 4 * kvb + 2 * stat}[which]
+    return operations, nbytes
+
+
+def _flash_meta(which: str, q, k, causal, window) -> None:
+    """Report a meta call's ``flash_counts`` (it launches nothing)."""
+    ops_n, nbytes = flash_counts(which, q.shape, k.shape, q.element_size(),
+                                 causal=causal, window=window)
+    record_kernel(f"flash_attention_{which}", ops_n, nbytes)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True, sm_scale=None, window=None):
     """Attention forward: (o in q's dtype, lse (B, Hq, Sq) float32).
@@ -550,7 +609,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     bfloat16), D ∈ {64, 128, 256}, Hq a multiple of Hkv (kv head = q head //
     group). Key j is visible from query i iff (not causal or j ≤ i) and
     (window is None or i − j < window); any Sq and Sk. A CPU tensor takes
-    ``ref.flash_attention_fwd_torch``; a CUDA tensor launches the kernel.
+    ``ref.flash_attention_fwd_torch``; a CUDA tensor launches the kernel; a
+    ``meta`` tensor gives empty outputs and reports ``flash_counts``.
     The kernel's output records no graph, so a CUDA call that would need a
     gradient raises: differentiate through ``flash_attention`` (the
     ``FlashAttention`` Function), whose backward is the two backward
@@ -560,7 +620,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return kref.flash_attention_fwd_torch(q, k, v, causal=causal,
                                               sm_scale=sm_scale, window=window)
-    _check_cuda("flash_attention_fwd", q, k, v)
+    if q.device.type != "meta":
+        _check_cuda("flash_attention_fwd", q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
@@ -571,6 +632,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     Hkv, Sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        _flash_meta("fwd", q, k, causal, window)
+        return o, lse
     if q.numel() == 0:
         return o, lse
     _flash_launch("flash_attention_fwd", "flash_attention_fwd_launch", 5, q,
@@ -608,12 +672,16 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True,
     """dq (like q) of the flash-attention backward, from the forward's lse
     and delta = rowsum(do·o), both (B, Hq, Sq) float32. A CPU tensor takes
     ``ref.flash_attention_bwd_dq_torch``; a CUDA tensor launches the dq
-    kernel (``csrc/flash_attention_bwd.cu``) or raises."""
+    kernel (``csrc/flash_attention_bwd.cu``) or raises; a ``meta`` tensor
+    reports ``flash_counts``."""
     _check_qkv(q, k, v, window)
     _check_bwd(q, do, lse=lse, delta=delta)
     kw = dict(causal=causal, sm_scale=sm_scale, window=window)
     if q.device.type == "cpu":
         return kref.flash_attention_bwd_dq_torch(q, k, v, do, lse, delta, **kw)
+    if q.device.type == "meta":
+        _flash_meta("dq", q, k, causal, window)
+        return torch.empty_like(q)
     _check_cuda("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     B, Hq, Sq, D = q.shape
     dq = torch.empty_like(q)
@@ -636,13 +704,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool = True,
     """(dk, dv) (like k and v) of the flash-attention backward, summed over
     each kv head's group of q heads. A CPU tensor takes
     ``ref.flash_attention_bwd_dkv_torch``; a CUDA tensor launches the dk/dv
-    kernel (``csrc/flash_attention_bwd.cu``) or raises."""
+    kernel (``csrc/flash_attention_bwd.cu``) or raises; a ``meta`` tensor
+    reports ``flash_counts``."""
     _check_qkv(q, k, v, window)
     _check_bwd(q, do, lse=lse, delta=delta)
     kw = dict(causal=causal, sm_scale=sm_scale, window=window)
     if q.device.type == "cpu":
         return kref.flash_attention_bwd_dkv_torch(q, k, v, do, lse, delta,
                                                   **kw)
+    if q.device.type == "meta":
+        _flash_meta("dkv", q, k, causal, window)
+        return torch.empty_like(k), torch.empty_like(v)
     _check_cuda("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     B, Hq, Sq, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -742,7 +814,8 @@ def flash_attention(q, k, v, *, causal=True, sm_scale=None, window=None,
                      f"'chunked_unroll', got {impl!r}")
 
 
-__all__ = ["FlashAttention", "copyscore", "copyscore_store", "copyscore_tile",
-           "copyscore_tile_fused", "flash_attention", "flash_attention_bwd",
-           "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_fwd", "pad_for_copyscore", "tile_scores"]
+__all__ = ["FLASH_PRODUCTS", "FlashAttention", "copyscore", "copyscore_store",
+           "copyscore_tile", "copyscore_tile_fused", "flash_attention",
+           "flash_attention_bwd", "flash_attention_bwd_dkv",
+           "flash_attention_bwd_dq", "flash_attention_fwd", "flash_counts",
+           "pad_for_copyscore", "tile_scores", "visible_pairs"]

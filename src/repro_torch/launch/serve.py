@@ -73,6 +73,12 @@
 
       PYTHONPATH=src python -m repro_torch.launch.serve --task detect \
           --device cpu --host-devices 4 --mesh-shape 2x2
+
+  --platform gpu|cpu, as JAX's ``--platform``, sets what every
+  ``device=None`` of the process means (``runtime.platform.set_platform``)
+  before either task starts: ``--platform cpu`` serves wholly on the CPU,
+  ``gpu`` (the default) on the card. ``--device`` names one device and
+  wins over it.
 """
 from __future__ import annotations
 
@@ -375,7 +381,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", choices=("lm", "detect"), default="lm")
     ap.add_argument("--device", default=None,
-                    help="cuda (default) or cpu")
+                    help="cuda or cpu (default: what --platform names)")
+    ap.add_argument("--platform", choices=("gpu", "cpu"), default=None,
+                    help="the process's platform (runtime.platform."
+                         "set_platform): gpu, the card (the default), or cpu")
     # lm args
     ap.add_argument("--arch", default="llama3.2-1b",
                     help="an arch of repro_torch.configs.ARCH_IDS (lm)")
@@ -454,8 +463,11 @@ def main(argv=None):
                     help="write a full snapshot every N commits "
                          "(0 = only the initial snapshot)")
     args = ap.parse_args(argv)
+    from repro_torch.runtime.platform import (set_host_device_count,
+                                              set_platform)
+    if args.platform:
+        set_platform(args.platform)
     if args.host_devices:
-        from repro_torch.runtime.platform import set_host_device_count
         set_host_device_count(args.host_devices)
     if args.task == "detect":
         serve_detect(args)

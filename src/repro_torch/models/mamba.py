@@ -19,6 +19,10 @@ performance item "the selective scan's step loop").
 
 Decoding carries (h, conv window) explicitly, O(1) per token; the port
 writes them into the cache's tensors in place.
+
+On ``meta`` tensors (the dry run, ``launch/dryrun.py``) each step loop
+runs as whole-chunk ops that move the same bytes and hold the same live
+memory, one op where the loop dispatches one a step.
 """
 from __future__ import annotations
 
@@ -94,6 +98,13 @@ def _scan_chunk(A, h, xc, dtc, Bc, Cc):
     one step."""
     da = torch.exp(dtc[..., None] * A)                  # (T,B,di,n)
     u = dtc[..., None] * Bc[:, :, None, :] * xc[..., None]
+    if u.is_meta:
+        # shapes only (a dry run): the step loop as whole-chunk ops of the
+        # same bytes and live memory, the T states and their stack
+        hs = torch.addcmul(u, da, u)
+        y = torch.einsum("tbdn,tbn->tbd",
+                         hs.clone(memory_format=torch.contiguous_format), Cc)
+        return hs[-1].clone(), y
     hs = []
     for t in range(xc.shape[0]):
         h = torch.addcmul(u[t], da[t], h)               # da·h + dt·B·x
@@ -107,6 +118,8 @@ def _chunk_states(A, h, xc, dtc, Bc):
     hs), each (T,B,di,n), the states written over dt·B·x in place."""
     da = torch.exp(dtc[..., None] * A)
     hs = dtc[..., None] * Bc[:, :, None, :] * xc[..., None]
+    if hs.is_meta:                      # shapes only: one op, the same bytes
+        return da, hs.addcmul_(da, hs)
     for t in range(xc.shape[0]):
         h = hs[t].addcmul_(da[t], h)
     return da, hs
@@ -170,8 +183,11 @@ class SelectiveScan(torch.autograd.Function):
             g = gyc[..., None] * Ccc[:, :, None, :]     # C_t·gy_t, (T,B,di,n)
             if gh is not None:
                 g[-1] += gh
-            for t in range(T - 2, -1, -1):
-                g[t].addcmul_(da[t + 1], g[t + 1])
+            if g.is_meta:               # shapes only: one op, the same bytes
+                g[:-1].addcmul_(da[1:], g[1:])
+            else:
+                for t in range(T - 2, -1, -1):
+                    g[t].addcmul_(da[t + 1], g[t + 1])
             gh = da[0] * g[0]                          # → the state before
             h_prev = torch.cat([starts[c][None], hs[:-1]])
             gz = g * h_prev * da                       # d/d(dt·A)

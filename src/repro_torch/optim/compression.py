@@ -11,7 +11,9 @@ payload and the float32 scales are all-gathered, dequantized and summed
 locally in rank order. The quantization residual is returned as the
 error fed into the next step, which keeps long-run drift small. The
 payload on the wire is a quarter of a float32 all-reduce's (plus four
-bytes a rank and leaf). Sum semantics, as ``psum``.
+bytes a rank and leaf). Sum semantics, as ``psum``. Each leaf reports
+its all-gather's result bytes to ``utils.costs`` (the dry run's
+collective count).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models.common import tree_leaves, tree_map, tree_unflatten
+from repro_torch.utils.costs import record_collective
 
 
 def quantize_int8(y: torch.Tensor) -> tuple:
@@ -45,6 +48,7 @@ def compress_allreduce(x: torch.Tensor, err: torch.Tensor, group=None) -> tuple:
     s_all = [torch.empty_like(scale.reshape(1)) for _ in range(n)]
     dist.all_gather(q_all, q.contiguous(), group=group)
     dist.all_gather(s_all, scale.reshape(1), group=group)
+    record_collective("all-gather", n * (q.numel() * q.element_size() + 4))
     summed = torch.zeros_like(y)
     for s_r, q_r in zip(s_all, q_all):
         summed += s_r * q_r.to(torch.float32)

@@ -12,12 +12,17 @@ n_micro live ticks, which gives the same outputs. The last stage records
 each finished microbatch, and a broadcast from it gives every rank the
 outputs, as JAX's masked ``psum`` replicates them. A one-stage pipeline
 sends nothing (JAX's ``ppermute`` 0 → 0 is the identity; a rank cannot
-send to itself over gloo or NCCL).
+send to itself over gloo or NCCL). Each send and the broadcast report
+their result bytes to ``utils.costs`` (the dry run's collective count;
+JAX's ``ppermute`` is a ``collective-permute``, its ``psum`` an
+``all-reduce``).
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.utils.costs import record_collective
 
 
 def _live(stage: int, tick: int, n_micro: int) -> bool:
@@ -55,6 +60,8 @@ def pipeline_apply(stage_fn, stage_params, x_micro: torch.Tensor, group=None):
         if stage < n_stages - 1 and out is not None:
             ops.append(dist.P2POp(dist.isend, out.contiguous(),
                                   peer(stage + 1), group))
+            record_collective("collective-permute",
+                              out.numel() * out.element_size())
         if stage > 0 and _live(stage - 1, t, n_micro):
             ops.append(dist.P2POp(dist.irecv, state, peer(stage - 1), group))
         if ops:
@@ -62,6 +69,7 @@ def pipeline_apply(stage_fn, stage_params, x_micro: torch.Tensor, group=None):
                 req.wait()
     if n_stages > 1:
         dist.broadcast(outputs, peer(n_stages - 1), group=group)
+        record_collective("all-reduce", outputs.numel() * outputs.element_size())
     return outputs
 
 

@@ -23,9 +23,15 @@ entries runs on the CPU as JAX's tests run theirs on virtual host devices.
 ``local_devices`` of a ``cuda`` device lists every card. Unlike the XLA
 flag it takes effect at any time: a mesh reads it when it is built.
 
-Not ported: ``set_platform`` writes XLA flags read when JAX's backend
-starts. It has no torch counterpart: the port picks its device per entry
-point through ``utils.device.resolve_device``.
+``set_platform`` picks the process's platform, as JAX's picks its
+backend: ``"gpu"`` (the card, the default) or ``"cpu"``, which is then
+what every entry point's ``device=None`` means
+(``utils.device.resolve_device``); the serving CLI's ``--platform``
+calls it, as JAX's calls its own. What does not carry over: JAX's
+function also writes ``XLA_FLAGS`` (async collectives, the latency-hiding
+scheduler, Triton GEMM fusion), read when XLA's backend starts; PyTorch
+runs eagerly and has no such compiler flags, and nothing here sets
+``XLA_FLAGS``. JAX's default is ``"cpu"``; the port's stays the card.
 
 ``process_group`` opens the ``torch.distributed`` world of the LM's
 multi-rank half (``runtime/sharding.py``, ``runtime/pipeline_parallel.py``,
@@ -52,6 +58,17 @@ AUTOTUNE_DIR = ".autotune"
 
 #: Entries the CPU platform lists (``set_host_device_count``).
 _host_device_count = 1
+
+
+def set_platform(platform: str = "gpu") -> None:
+    """Make ``device=None`` mean the card (``"gpu"``; it still raises
+    where there is none) or the CPU (``"cpu"``) for the whole process.
+    Any other name raises ``ValueError``."""
+    from repro_torch.utils import device
+
+    if platform not in ("gpu", "cpu"):
+        raise ValueError(f"platform must be 'gpu' or 'cpu', got {platform!r}")
+    device._DEFAULT = "cuda" if platform == "gpu" else "cpu"
 
 
 def set_host_device_count(n: int) -> None:
@@ -183,4 +200,4 @@ def process_group(rank: int, world_size: int, store_dir: str, device=None,
 
 __all__ = ["AUTOTUNE_DIR", "autotune", "device_key", "host_device_count",
            "load_autotune", "local_devices", "process_group",
-           "set_host_device_count"]
+           "set_host_device_count", "set_platform"]
