@@ -2229,6 +2229,7 @@ def phase_shards(torch, np, dev, ops, cfg, ds, p, ctx5, grids5) -> dict:
     import tempfile
 
     from repro_torch.core import DetectionEngine, merge_owner_partials
+    from repro_torch.utils.timing import span_total
 
     K, w = ctx5.ech.n_chunks, ctx5.ech.width
     unsharded = ctx5.S_pad * K * w              # phase 5's scan store, int8
@@ -2287,8 +2288,10 @@ def phase_shards(torch, np, dev, ops, cfg, ds, p, ctx5, grids5) -> dict:
             f"{base.shard_peak_bytes()} (bar {index_bytes // SHARD_OWNERS}), "
             f"scan store {scan.shard_peak_bytes()} (bar "
             f"{unsharded // SHARD_OWNERS})")
+        spans = eng.spans.since(ctx.mark)     # the prologue's spans
         log(f"[18c] seconds: index build with the streaming seal "
-            f"{ctx.index_build_s:.3f}, prologue {ctx.prologue_s:.3f}, owner "
+            f"{span_total(spans, 'index_build'):.3f}, prologue "
+            f"{span_total(spans, 'prologue'):.3f}, owner "
             f"scans {[round(q.stats.get('scan_s', 0.0), 3) for q in parts]} (staging "
             f"{sum(q.stats.get('staging_s', 0.0) for q in parts):.3f}, "
             f"stage wait "

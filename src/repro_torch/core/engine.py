@@ -116,6 +116,7 @@ from repro_torch.kernels.ops import tile_scores
 from repro_torch.runtime.platform import local_devices
 from repro_torch.utils.counters import ComputeCounter
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.timing import SpanLog, span_total
 
 MODES = ("pairwise", "exact", "bucketed", "bound", "bound+", "hybrid",
          "incremental", "sampled", "sample_verify")
@@ -215,7 +216,7 @@ class TileScanContext:
     """The deterministic prologue of one tiled pass: everything the scan and
     the finalize consume, computed once (host numpy)."""
 
-    t0: float
+    mark: int                      # engine.spans.recorded at the prologue's start
     ds: ClaimsDataset
     p_claim: np.ndarray
     base_idx: InvertedIndex
@@ -233,8 +234,6 @@ class TileScanContext:
     Gc: int                        # chunks per device pass
     chunk_nbytes: int
     mask_source: str = "fresh"     # tile masks from the cache or a fresh reduction
-    index_build_s: float = 0.0     # host seconds building the index (0 if given)
-    prologue_s: float = 0.0        # host seconds of the rest of the prologue
     sharded: bool = False          # the scan store is a ShardedCorpusStore
     resident_nbytes: int = 0       # one chunk's resident bytes (packed: 1 bit)
     items: Optional[np.ndarray] = None  # sampled modes' item subset (fan-out)
@@ -275,6 +274,9 @@ class DetectionEngine:
         self._mesh2: Optional[Mesh] = None
         self.last_stats: dict = {}
         self._scan_stats: dict = {}
+        # the passes' spans (utils/timing.py); a service records its batches
+        # on the same log, so a pass nests under its batch
+        self.spans = SpanLog()
         self._inc_state = None
         # (S, S) bool on the device: the pairs the last tiled pass considered
         # (sample_verify: its candidate set)
@@ -407,8 +409,13 @@ class DetectionEngine:
             overriding the configured sampler.
 
         Returns a ``DetectionResult`` (numpy fields) over every ordered
-        source pair; per-run diagnostics land in ``self.last_stats``.
+        source pair; per-run diagnostics land in ``self.last_stats``. The
+        pass is a ``detect`` span on ``self.spans``.
         """
+        with self.spans.span("detect"):
+            return self._detect(ds, p_claim, index, items)
+
+    def _detect(self, ds, p_claim, index, items) -> DetectionResult:
         opt = self.options
         if self.mode == "pairwise":
             return pairwise_detect(ds, p_claim, self.cfg, device=self.device)
@@ -584,17 +591,18 @@ class DetectionEngine:
         other modes keep the dense wrap (a sealed store refuses commits).
         """
         opt = self.options
-        idx = build_index(ds, p_claim, self.cfg,
-                          chunk_entries=opt.store_chunk_entries,
-                          chunk_bytes=opt.store_chunk_bytes,
-                          device=self.device)
-        if opt.n_shards and opt.n_shards > 1:
-            plan = make_shard_plan(idx.store.n_rows, opt.n_shards)
-            if streaming and self._shard_seal():
-                idx.store = shard_store(idx.store, plan, consume=True,
-                                        **self._shard_seal())
-            else:
-                idx.store = shard_store(idx.store, plan)
+        with self.spans.span("index_build"):
+            idx = build_index(ds, p_claim, self.cfg,
+                              chunk_entries=opt.store_chunk_entries,
+                              chunk_bytes=opt.store_chunk_bytes,
+                              device=self.device, spans=self.spans)
+            if opt.n_shards and opt.n_shards > 1:
+                plan = make_shard_plan(idx.store.n_rows, opt.n_shards)
+                if streaming and self._shard_seal():
+                    idx.store = shard_store(idx.store, plan, consume=True,
+                                            **self._shard_seal())
+                else:
+                    idx.store = shard_store(idx.store, plan)
         return idx
 
     def _shard_seal(self) -> Optional[dict]:
@@ -627,18 +635,27 @@ class DetectionEngine:
         p_claim: np.ndarray,
         index: InvertedIndex | None = None,
     ) -> TileScanContext:
-        """Steps 1–2 of the tiled pass: index, chunking, pruning, sizing."""
-        t0 = time.perf_counter()
+        """Steps 1–2 of the tiled pass: index, chunking, pruning, sizing.
+
+        Spans: ``index_build`` (when no ``index`` is given), then
+        ``prologue`` with ``prologue.rechunk``."""
+        mark = self.spans.recorded
+        base_idx = index
+        if base_idx is None:
+            base_idx = self._build_index(ds, p_claim, streaming=True)
+        with self.spans.span("prologue"):
+            return self._prologue(ds, p_claim, index, base_idx, mark)
+
+    def _prologue(self, ds: ClaimsDataset, p_claim: np.ndarray,
+                  index: InvertedIndex | None, base_idx: InvertedIndex,
+                  mark: int) -> TileScanContext:
+        """Step 2 of the tiled pass on the index ``base_idx``: chunking,
+        pruning, sizing (``index`` is the caller's, None when built)."""
         opt = self.options
         S = ds.n_sources
         T = self._tile_edge(S)
         n_blocks = -(-S // T)
         S_pad = n_blocks * T
-        base_idx = index
-        index_build_s = 0.0
-        if base_idx is None:
-            base_idx = self._build_index(ds, p_claim, streaming=True)
-            index_build_s = time.perf_counter() - t0
         itemsize = 1                                # int8 incidence
         # p-ordered, region-padded, uniform-width chunk store; rows carry the
         # tile-grid padding so chunks slice straight into pair tiles. The
@@ -647,10 +664,11 @@ class DetectionEngine:
         # index gathers a sharded scan store, sealed (packed / capped) as it
         # is gathered when the seal options are set.
         sharded = isinstance(base_idx.store, ShardedCorpusStore)
-        ech = engine_chunks(
-            base_idx, opt.n_buckets, row_capacity=S_pad,
-            max_width=opt.chunk_group_bytes // max(S_pad * itemsize, 1),
-            seal=self._shard_seal() if sharded else None)
+        with self.spans.span("prologue.rechunk"):
+            ech = engine_chunks(
+                base_idx, opt.n_buckets, row_capacity=S_pad,
+                max_width=opt.chunk_group_bytes // max(S_pad * itemsize, 1),
+                seal=self._shard_seal() if sharded else None)
         K = ech.n_chunks
         b = ech.width
         # per-chunk bound δ_k on |f(p) − f(p̂_k)| for any entry p in chunk k
@@ -721,13 +739,11 @@ class DetectionEngine:
         else:
             Gc = min(budget_chunks, max(1, K - 1))
         return TileScanContext(
-            t0=t0, ds=ds, p_claim=p_claim, base_idx=base_idx, ech=ech,
+            mark=mark, ds=ds, p_claim=p_claim, base_idx=base_idx, ech=ech,
             delta=delta, S=S, T=T, n_blocks=n_blocks, S_pad=S_pad,
             acc_pad=acc_pad, chunk_keep=chunk_keep, coords=coords,
             tiles_total=tiles_total, n_tiles=len(coords), Gc=Gc,
             chunk_nbytes=chunk_nbytes, mask_source=mask_source,
-            index_build_s=index_build_s,
-            prologue_s=time.perf_counter() - t0 - index_build_s,
             sharded=sharded, resident_nbytes=resident_nbytes)
 
     def _scan_groups(self, ctx: TileScanContext, tiles=None) -> list:
@@ -879,46 +895,54 @@ class DetectionEngine:
         merged.
         """
         dev = self.device
-        S_pad, n_tiles, K = ctx.S_pad, ctx.n_tiles, ctx.ech.n_chunks
-        t0 = time.perf_counter()
-        launches0 = tile_scores.launches
-        chunk_tiles_run = 0
-        if ctx.sharded and n_tiles and K:
-            partials = [self._scan_owner(ctx, s)
-                        for s in range(ctx.ech.store.n_shards)]
-            t_merge = time.perf_counter()
-            grids = merge_owner_partials(partials, ctx.n_blocks, ctx.T,
+        with self.spans.span("scan") as sp:
+            S_pad, n_tiles, K = ctx.S_pad, ctx.n_tiles, ctx.ech.n_chunks
+            launches0 = tile_scores.launches
+            chunk_tiles_run = 0
+            if ctx.sharded and n_tiles and K:
+                partials = [self._scan_owner(ctx, s)
+                            for s in range(ctx.ech.store.n_shards)]
+                grids, merge_s = self._merge_owners(ctx, partials)
+                extra = self._owner_stats(partials)
+                extra["merge_s"] = merge_s
+                chunk_tiles_run = sum(p.chunk_tiles_run for p in partials)
+                del partials
+            else:
+                grids = [torch.zeros((S_pad, S_pad), dtype=torch.float32,
+                                     device=dev) for _ in range(4)]
+                groups = self._scan_groups(ctx) if n_tiles and K else []
+                extra = {"groups_run": len(groups), "scan_kernel_ms": 0.0,
+                         "staging_s": 0.0, "stage_wait_s": 0.0,
+                         "compute_wait_s": 0.0}
+                if groups:
+                    # a tile shipped with a group scans ALL the group's
+                    # chunks, so count what really runs
+                    chunk_tiles_run = sum(int(gm.sum()) * len(ks)
+                                          for ks, gm in groups)
+                    stacks, kernel_ms, pipe = self._stream_groups(
+                        ctx, groups, ctx.coords, ctx.acc_pad, S_pad)
+                    extra.update(pipe, scan_kernel_ms=kernel_ms)
+                    scatter_tile_stacks(grids,
+                                        torch.from_numpy(ctx.coords).to(dev),
+                                        stacks, ctx.n_blocks, ctx.T)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        self._scan_stats = {**extra,
+                            "kernel_launches": tile_scores.launches - launches0,
+                            "scan_s": sp.seconds}
+        return grids, chunk_tiles_run
+
+    def _merge_owners(self, ctx: TileScanContext, partials: list):
+        """The owners' partials merged into the four grids under a
+        ``scan.merge`` span, which ends with the merge's device work;
+        returns the grids and the span's seconds."""
+        dev = self.device
+        with self.spans.span("scan.merge") as merge:
+            grids = merge_owner_partials(list(partials), ctx.n_blocks, ctx.T,
                                          device=dev)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
-            extra = self._owner_stats(partials)
-            extra["merge_s"] = time.perf_counter() - t_merge
-            chunk_tiles_run = sum(p.chunk_tiles_run for p in partials)
-            del partials
-        else:
-            grids = [torch.zeros((S_pad, S_pad), dtype=torch.float32,
-                                 device=dev) for _ in range(4)]
-            groups = self._scan_groups(ctx) if n_tiles and K else []
-            extra = {"groups_run": len(groups), "scan_kernel_ms": 0.0,
-                     "staging_s": 0.0, "stage_wait_s": 0.0,
-                     "compute_wait_s": 0.0}
-            if groups:
-                # a tile shipped with a group scans ALL the group's chunks,
-                # so count what really runs
-                chunk_tiles_run = sum(int(gm.sum()) * len(ks)
-                                      for ks, gm in groups)
-                stacks, kernel_ms, pipe = self._stream_groups(
-                    ctx, groups, ctx.coords, ctx.acc_pad, S_pad)
-                extra.update(pipe, scan_kernel_ms=kernel_ms)
-                scatter_tile_stacks(grids,
-                                    torch.from_numpy(ctx.coords).to(dev),
-                                    stacks, ctx.n_blocks, ctx.T)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        self._scan_stats = {**extra,
-                            "kernel_launches": tile_scores.launches - launches0,
-                            "scan_s": time.perf_counter() - t0}
-        return grids, chunk_tiles_run
+        return grids, merge.seconds
 
     @staticmethod
     def _owner_stats(partials) -> dict:
@@ -992,58 +1016,73 @@ class DetectionEngine:
                         chunk_tiles_run: int) -> DetectionResult:
         """Step 4 on the device: INDEX step 3 + error-bounded exact rescore
         + decide. ``grids`` may be device tensors or host arrays."""
-        t_fin = time.perf_counter()
         cfg, opt, dev = self.cfg, self.options, self.device
         ds, S, ech = ctx.ds, ctx.S, ctx.ech
-        g = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in grids]
-        c_same = g[0][:S, :S]
-        n_cnt = g[1][:S, :S]
-        err = g[3][:S, :S]
-        considered = g[2][:S, :S] > 0.5
-        considered.fill_diagonal_(False)
+        with self.spans.span("finalize") as fin:
+            g = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in grids]
+            c_same = g[0][:S, :S]
+            n_cnt = g[1][:S, :S]
+            err = g[3][:S, :S]
+            considered = g[2][:S, :S] > 0.5
+            considered.fill_diagonal_(False)
 
-        # ---- INDEX step 3 (float64, as the host reference computes it) ----
-        l_counts = torch.as_tensor(ctx.base_idx.l_counts, device=dev)
-        adj = c_same.double() + (l_counts.double() - n_cnt.double()) * cfg.ln_1ms
-        c_fwd = torch.where(considered, adj, 0.0).to(torch.float32)
-        del adj
-        c_fwd.fill_diagonal_(0.0)
+            # ---- INDEX step 3 (float64, as the host reference computes it) ----
+            l_counts = torch.as_tensor(ctx.base_idx.l_counts, device=dev)
+            adj = c_same.double() + (l_counts.double() - n_cnt.double()) * cfg.ln_1ms
+            c_fwd = torch.where(considered, adj, 0.0).to(torch.float32)
+            del adj
+            c_fwd.fill_diagonal_(0.0)
 
-        # a pair's decision can only differ from the exact INDEX if the
-        # accumulated p̂ error reaches its decision margin — rescore exactly
-        # every such pair (err bounds |Δ C→|; |Δz| ≤ max of both directions)
-        t_res = time.perf_counter()
-        z = np.log(cfg.alpha / cfg.beta) + torch.logaddexp(c_fwd, c_fwd.T)
-        near = considered & (z.abs() < opt.rescore_margin
-                             + torch.maximum(err, err.T))
-        del z
-        pi, pj = torch.nonzero(torch.triu(near, 1), as_tuple=True)
-        del near
-        n_rescored = rescore_pairs_exact(*dataset_tensors(ds, ctx.p_claim, dev),
-                                         cfg, pi, pj, c_fwd)
-        rescore_s = time.perf_counter() - t_res
+            # a pair's decision can only differ from the exact INDEX if the
+            # accumulated p̂ error reaches its decision margin — rescore exactly
+            # every such pair (err bounds |Δ C→|; |Δz| ≤ max of both directions)
+            t_res = time.perf_counter_ns()
+            z = np.log(cfg.alpha / cfg.beta) + torch.logaddexp(c_fwd, c_fwd.T)
+            near = considered & (z.abs() < opt.rescore_margin
+                                 + torch.maximum(err, err.T))
+            del z
+            pi, pj = torch.nonzero(torch.triu(near, 1), as_tuple=True)
+            del near
+            n_rescored = rescore_pairs_exact(
+                *dataset_tensors(ds, ctx.p_claim, dev), cfg, pi, pj, c_fwd)
+            rescored = None
+            if dev.type == "cuda":
+                rescored = torch.cuda.Event()
+                rescored.record(torch.cuda.current_stream(dev))
+            t_res_end = time.perf_counter_ns()
 
-        pr_ind = posterior_independence(c_fwd, c_fwd.T, cfg)
-        copying = decide_copying(c_fwd, c_fwd.T, cfg) & considered
-        pr_ind = torch.where(considered, pr_ind, 1.0)
-        pr_ind.fill_diagonal_(1.0)
-        copying.fill_diagonal_(False)
-        self._last_considered = considered
+            pr_ind = posterior_independence(c_fwd, c_fwd.T, cfg)
+            copying = decide_copying(c_fwd, c_fwd.T, cfg) & considered
+            pr_ind = torch.where(considered, pr_ind, 1.0)
+            pr_ind.fill_diagonal_(1.0)
+            copying.fill_diagonal_(False)
+            self._last_considered = considered
+            if rescored is not None:
+                # the rescore's span ends with its device work, waited for
+                # where the host waits anyway: the first read back below
+                rescored.synchronize()
+                t_res_end = time.perf_counter_ns()
+            rescore = self.spans.add("finalize.rescore", t_res, t_res_end,
+                                     parent=fin)
 
-        # semantic (paper-metric) accounting, identical to the exact INDEX
-        upper = torch.triu(considered, 1)
-        values_examined = int(n_cnt[upper].double().sum().item())
-        n_pairs = int(upper.sum().item())
-        counter = ComputeCounter(
-            pairs_considered=n_pairs,
-            shared_values_examined=values_examined,
-            score_computations=2 * values_examined + 2 * n_pairs + 2 * n_rescored,
-            index_entries=ech.n_live,
-        )
+            # semantic (paper-metric) accounting, identical to the exact INDEX
+            upper = torch.triu(considered, 1)
+            values_examined = int(n_cnt[upper].double().sum().item())
+            n_pairs = int(upper.sum().item())
+            counter = ComputeCounter(
+                pairs_considered=n_pairs,
+                shared_values_examined=values_examined,
+                score_computations=2 * values_examined + 2 * n_pairs + 2 * n_rescored,
+                index_entries=ech.n_live,
+            )
+            c_fwd, pr_ind, copying = (c_fwd.cpu().numpy(), pr_ind.cpu().numpy(),
+                                      copying.cpu().numpy())
+        recs = self.spans.since(ctx.mark)
         result = DetectionResult(
-            c_fwd=c_fwd.cpu().numpy(), pr_independent=pr_ind.cpu().numpy(),
-            copying=copying.cpu().numpy(), counter=counter,
-            wall_time_s=time.perf_counter() - ctx.t0)
+            c_fwd=c_fwd, pr_independent=pr_ind, copying=copying,
+            counter=counter,
+            # from the pass's first span: the build's, or the prologue's
+            wall_time_s=(fin.t1_ns - min(r.t0_ns for r in recs)) * 1e-9)
         scan = self._scan_stats
         self.last_stats = {
             "device": str(dev),
@@ -1075,12 +1114,15 @@ class DetectionEngine:
             "mask_full_builds": self._mask_full_builds,
             "mask_blocks_updated": (self._mask_cache.blocks_updated
                                     if self._mask_cache is not None else 0),
-            "index_build_s": ctx.index_build_s,
-            "prologue_s": ctx.prologue_s,
+            # host seconds, from the pass's spans
+            "index_build_s": span_total(recs, "index_build"),
+            "index_build_sort_s": span_total(recs, "index_build.sort"),
+            "prologue_s": span_total(recs, "prologue"),
+            "rechunk_s": span_total(recs, "prologue.rechunk"),
             "scan_s": scan.get("scan_s", 0.0),
             "scan_kernel_ms": scan.get("scan_kernel_ms", 0.0),
-            "rescore_s": rescore_s,
-            "finalize_s": time.perf_counter() - t_fin,
+            "rescore_s": rescore.seconds,
+            "finalize_s": fin.seconds,
         }
         if ctx.sharded:
             # shard-plane telemetry: what each shard held, its spill
@@ -1174,21 +1216,20 @@ class DetectionEngine:
             raise ValueError(
                 f"finalize_owner_partials: partials cover owners {got}, "
                 f"need each of 0..{n - 1} exactly once")
-        t0 = time.perf_counter()
-        grids = merge_owner_partials(list(partials), ctx.n_blocks, ctx.T,
-                                     device=self.device)
+        grids, merge_s = self._merge_owners(ctx, partials)
         self._scan_stats = {
             **self._owner_stats(partials),
             "kernel_launches": sum(p.stats.get("kernel_launches", 0)
                                    for p in partials),
             "scan_s": sum(p.stats.get("scan_s", 0.0) for p in partials),
-            "merge_s": time.perf_counter() - t0}
+            "merge_s": merge_s}
         run = sum(int(p.chunk_tiles_run) for p in partials)
         result = self._tiled_finalize(ctx, grids, run)
         if self.mode == "sample_verify":
+            t0 = min(r.t0_ns for r in self.spans.since(ctx.mark)) * 1e-9
             return self._sample_verify_finalize(
                 ds, p_claim, ctx.items, result, self.last_stats,
-                self._last_considered, ctx.t0)
+                self._last_considered, t0)
         return result
 
 

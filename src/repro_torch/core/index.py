@@ -52,6 +52,7 @@ from repro_torch.core.types import (
     claim_value_keys,
 )
 from repro_torch.utils.device import resolve_device
+from repro_torch.utils.timing import SpanLog
 
 
 @dataclass
@@ -291,6 +292,7 @@ def build_index(
     chunk_bytes: Optional[int] = None,
     row_capacity: Optional[int] = None,
     device=None,
+    spans: Optional[SpanLog] = None,
 ) -> InvertedIndex:
     """Build the inverted index for a claims dataset, streaming into chunks.
 
@@ -302,7 +304,9 @@ def build_index(
     ``chunk_bytes`` derives the chunk width from a byte budget for that
     peak allocation (it wins over ``chunk_entries``); ``row_capacity``
     preallocates slack rows. ``l_counts`` is computed on ``device``
-    (``None`` → the card).
+    (``None`` → the card). ``spans`` records the key sort and ``unique``
+    as ``index_build.sort``, under its innermost open span; None records
+    nothing.
     """
     values = ds.values
     S, D = values.shape
@@ -318,17 +322,22 @@ def build_index(
     chunk_entries = align_chunk(chunk_entries)
 
     # --- group claims by (item, value): vectorized via a composite key -----
-    max_v = int(values.max()) + 1 if values.size and values.max() >= 0 else 1
-    key = np.where(prov, np.arange(D, dtype=np.int64)[None, :] * max_v + values, -1)
-    flat_key = key.ravel()
-    claim_src = np.repeat(np.arange(S, dtype=np.int32), D)
-    valid = flat_key >= 0
-    flat_key, claim_src = flat_key[valid], claim_src[valid]
-    flat_p = p_claim.ravel()[valid].astype(np.float32)
+    with (spans if spans is not None else SpanLog(0)).span("index_build.sort"):
+        max_v = (int(values.max()) + 1 if values.size and values.max() >= 0
+                 else 1)
+        key = np.where(prov, np.arange(D, dtype=np.int64)[None, :] * max_v
+                       + values, -1)
+        flat_key = key.ravel()
+        claim_src = np.repeat(np.arange(S, dtype=np.int32), D)
+        valid = flat_key >= 0
+        flat_key, claim_src = flat_key[valid], claim_src[valid]
+        flat_p = p_claim.ravel()[valid].astype(np.float32)
 
-    order = np.argsort(flat_key, kind="stable")
-    flat_key, claim_src, flat_p = flat_key[order], claim_src[order], flat_p[order]
-    uniq_key, starts, counts = np.unique(flat_key, return_index=True, return_counts=True)
+        order = np.argsort(flat_key, kind="stable")
+        flat_key, claim_src, flat_p = (flat_key[order], claim_src[order],
+                                       flat_p[order])
+        uniq_key, starts, counts = np.unique(flat_key, return_index=True,
+                                             return_counts=True)
 
     shared = counts >= 2                       # Def. 3.2: ≥ 2 providers
     e_keys = uniq_key[shared]

@@ -80,7 +80,7 @@ import os
 import threading
 import time
 import dataclasses
-from collections import OrderedDict, deque
+from collections import Counter, OrderedDict, deque
 from concurrent.futures import Future
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -117,6 +117,7 @@ from repro_torch.core.wal import (
     write_manifest,
     write_snapshot,
 )
+from repro_torch.utils.timing import subtree
 
 #: Engine modes that consume a prebuilt InvertedIndex — for these the service
 #: maintains ONE committed index across batches (per-batch transient commits
@@ -213,7 +214,6 @@ class DetectResponse:
     intra_copying: np.ndarray     # (q, q) bool — within-request pairs
     batch_requests: int = 1       # how many requests shared the engine pass
     batch_rows: int = 0           # total query rows in that pass
-    engine_wall_s: float = 0.0    # wall time of the shared pass
     latency_s: float = 0.0        # submit → result (filled by the service)
     host_copy_bytes: int = 0      # bytes staged into the resident buffers
                                   # for this batch (query rows only)
@@ -431,7 +431,9 @@ def serve_batch(
         bit-exact after the pass, even on failure. This replaces the
         per-batch index rebuild the engine would otherwise do.
 
-    Returns one ``DetectResponse`` per request, in request order.
+    Returns one ``DetectResponse`` per request, in request order. With
+    an ``index``, the transient commit and its rollback are the spans
+    ``serve.commit`` and ``serve.rollback`` on ``engine.spans``.
     """
     if engine.mode == "incremental":
         raise ValueError("serve_batch requires a stateless engine mode")
@@ -456,26 +458,29 @@ def serve_batch(
     union, p, copied = resident.stage(requests)
 
     if index is not None and engine.mode in INDEXED_MODES:
-        index.store.ensure_row_capacity(union.n_sources)
-        info = commit_rows(index, union, p, engine.cfg,
-                           union.n_sources - S0, compact=False)
-        # carry the transient commit's delta into the engine's block-OR
-        # mask cache so the batch detect updates O(touched) cells instead
-        # of regathering all K chunk reductions (DESIGN.md §11)
-        token = engine.apply_mask_delta(info.delta)
+        with engine.spans.span("serve.commit"):
+            index.store.ensure_row_capacity(union.n_sources)
+            info = commit_rows(index, union, p, engine.cfg,
+                               union.n_sources - S0, compact=False)
+            # carry the transient commit's delta into the engine's block-OR
+            # mask cache so the batch detect updates O(touched) cells
+            # instead of regathering all K chunk reductions (DESIGN.md §11)
+            token = engine.apply_mask_delta(info.delta)
         try:
             res = engine.detect(union, p, index=index)
         finally:
             # bit-exact unwind — a mid-batch engine failure must never leave
             # the batch's transient rows/deltas in the committed index
-            rollback_commit(index, info)
-            if token is not None:
-                engine.undo_mask_delta(token)
-            else:
-                # no cache existed before this transient commit — whatever
-                # the detect pass adopted is anchored mid-transient; shrink
-                # it back onto the restored base so the next batch chains
-                engine.rebase_mask_cache(info.delta)
+            with engine.spans.span("serve.rollback"):
+                rollback_commit(index, info)
+                if token is not None:
+                    engine.undo_mask_delta(token)
+                else:
+                    # no cache existed before this transient commit —
+                    # whatever the detect pass adopted is anchored
+                    # mid-transient; shrink it back onto the restored base
+                    # so the next batch chains
+                    engine.rebase_mask_cache(info.delta)
     else:
         res = engine.detect(union, p)
 
@@ -491,7 +496,6 @@ def serve_batch(
             intra_copying=res.copying[rows, rows].copy(),
             batch_requests=len(requests),
             batch_rows=n_rows,
-            engine_wall_s=res.wall_time_s,
             host_copy_bytes=copied,
         ))
         off += r.n_rows
@@ -538,12 +542,22 @@ class ServiceStats:
     breaker_open: int = 0         # replicas currently open/half-open (router)
     queue_wait_samples: list = dataclasses.field(default_factory=list,
                                                  repr=False)
+    # the batches' spans (``batch`` and those under it; utils/timing.py):
+    # seconds and count by span name
+    span_s: Counter = dataclasses.field(default_factory=Counter, repr=False)
+    span_n: Counter = dataclasses.field(default_factory=Counter, repr=False)
 
     def record_wait(self, seconds: float) -> None:
         """Record one request's submit→batch-start queue wait."""
         self.queue_wait_samples.append(float(seconds))
         if len(self.queue_wait_samples) > _MAX_WAIT_SAMPLES:
             del self.queue_wait_samples[: -_MAX_WAIT_SAMPLES]
+
+    def record_spans(self, records: list) -> None:
+        """Add one batch's spans to ``span_s`` and ``span_n``."""
+        for r in records:
+            self.span_s[r.name] += r.seconds
+            self.span_n[r.name] += 1
 
     @property
     def queue_wait_p50(self) -> float:
@@ -571,7 +585,8 @@ class ServiceStats:
 
 def _stat_counter_fields() -> list:
     """The int counter fields of ``ServiceStats`` (snapshot/aggregation
-    currency — the wait-sample buffer is runtime-only and is skipped)."""
+    currency — the wait samples and span seconds are runtime-only and are
+    skipped)."""
     return [f for f in dataclasses.fields(ServiceStats) if f.type == "int"]
 
 
@@ -1092,6 +1107,18 @@ class DetectionService:
             return
         for _, _, t_sub, _ in batch:
             self.stats.record_wait(t_start - t_sub)
+        log = self.engine.spans
+        mark = log.recorded
+        try:
+            with log.span("batch") as sp:
+                self._answer(batch, t_start)
+        finally:
+            self.stats.record_spans(subtree(log.since(mark), sp))
+
+    def _answer(self, batch: list, t_start: float) -> None:
+        """``_run_batch``'s work on its live requests, inside its ``batch``
+        span (whose seconds and those of the spans under it go to
+        ``stats.span_s``, a failed batch's too)."""
         with self._corpus_lock:
             reqs = [entry[0] for entry in batch]
             responses: list = [None] * len(batch)
@@ -2041,7 +2068,6 @@ class ReplicaRouter:
             intra_copying=res.copying[rows, rows].copy(),
             batch_requests=1,
             batch_rows=request.n_rows,
-            engine_wall_s=res.wall_time_s,
             host_copy_bytes=copied,
         )
 
