@@ -30,7 +30,7 @@ one-rank ``nccl`` world — and
 checks them phase by phase; any failure exits non-zero. Phases 18, 25
 and 13–16 run right after phase 6, while the full pass's store is still in
 memory; then phase 17 on a corpus of its own, phases 19 and 20, then
-phases 7–12, then phases 21–24, then phases 26 and 27.
+phases 7–12, then phases 21–24, then phases 26, 27 and 28.
 Phases:
 
   1. the card: ``nvidia-smi`` name and power limit, torch's device name;
@@ -356,6 +356,17 @@ Phases:
      FLOPs; grok-1-314b × train_4k × single and the copyscore cell on
      both production meshes, printed as ``CELLRESULT`` lines; the phase's
      seconds, failing over its budget of 30.
+ 28. the exact pair rescore (``ops.pair_scores``, ``csrc/pair_rescore.cu``)
+     at one Book-full pass's pair list (``book_full_spec``, the detect
+     CLI's CopyConfig): one bucketed pass on the card, its near-boundary
+     pairs captured at the wrapper and ``last_stats["rescore_launches"]``
+     == 1, as are the wrapper's launches counted over that pass alone; the
+     kernel against the plain version (``ref.pair_scores_torch``, once a
+     direction), |Δ| ≤ 1e-5 · Σ|terms| on every pair; two launches
+     bit-equal; the kernel's time (CUDA events, a call and on the card
+     alone) beside its bound by bytes (each value row the list touches read
+     once, p where the values agree, the indices and outputs; each pair's
+     two rows read once is given beside it) and the plain version's time.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Needs one card; exits 2 without one, and
@@ -401,6 +412,11 @@ WORLD_2048 = dict(n_sources=2048, n_items=3072, coverage="book", n_cliques=50,
                   clique_size=3, clique_items=12, seed=0)
 # comparisons of the kernel with its plain version
 RTOL, ATOL = 2e-5, 1e-4
+# the pair rescore against its plain version (phase 28): |Δ| ≤ this times
+# the pair's Σ|terms| (the plain version's float32 sum against the kernel's
+# double one), on every pair, this many pairs at a time
+RESCORE_REL_SUM = 1e-5
+RESCORE_CHECK_CHUNK = 2000
 # H100 SXM peaks (NVIDIA data sheet, dense) beside HBM_BPS and BF16_OPS:
 # int8 tensor-core op/s, float32 op/s outside the tensor cores
 INT8_OPS = 1.979e15
@@ -4971,6 +4987,126 @@ def phase_dryrun(torch, dev, ops, card, peaks, model_flops, counts) -> dict:
     return {"ratios": ratios, "seconds": phase_s}
 
 
+def phase_rescore(torch, np, dev, ops, ref, card) -> dict:
+    """Phase 28: the exact pair rescore kernel at one Book-full pass's pair
+    list, against its plain version, timed beside its bounds. Returns the
+    kernel's record."""
+    from repro_torch.core import CopyConfig, DetectionEngine
+    from repro_torch.core import incremental as incremental_mod
+    from repro_torch.core.scoring import score_same
+    from repro_torch.data.claims import (
+        book_full_spec,
+        oracle_claim_probs,
+        synthetic_claims,
+    )
+
+    cfg = CopyConfig(**SERVICE_CFG)
+    sc = synthetic_claims(book_full_spec(seed=0))
+    ds, p_claim = sc.dataset, oracle_claim_probs(sc)
+    S, D = ds.n_sources, ds.n_items
+    # (a) one pass; the rescore's operands captured at the wrapper
+    seen = []
+    wrapped = incremental_mod.pair_scores
+
+    def capture(vals, p, acc, pi, pj, **kw):
+        seen.append((vals, p, acc, pi.clone(), pj.clone()))
+        return wrapped(vals, p, acc, pi, pj, **kw)
+
+    incremental_mod.pair_scores = capture
+    try:
+        eng = DetectionEngine(cfg, mode="bucketed", device=dev)
+        ops.pair_scores.launches = 0          # count the main path's launches
+        t0 = time.perf_counter()
+        eng.detect(ds, p_claim)
+        pass_s = time.perf_counter() - t0
+        launches = ops.pair_scores.launches
+    finally:
+        incremental_mod.pair_scores = wrapped
+    st = eng.last_stats
+    if len(seen) != 1 or not launches == st["rescore_launches"] == 1:
+        raise AssertionError(f"the pass called the rescore {len(seen)} times, "
+                             f"launched {launches} kernels, "
+                             f"rescore_launches {st['rescore_launches']}")
+    vals, p, acc, pi, pj = seen[0]
+    n_pairs = len(pi)
+    if n_pairs != st["rescored_pairs"] or n_pairs == 0:
+        raise AssertionError(f"{n_pairs} pairs captured, "
+                             f"{st['rescored_pairs']} rescored")
+    log(f"[28] Book-full pass S={S} D={D}: {pass_s:.3f} s, rescore_s "
+        f"{st['rescore_s']:.4f}, {n_pairs} pairs, rescore_launches "
+        f"{st['rescore_launches']}")
+    del eng
+
+    def kernel():
+        return ops.pair_scores(vals, p, acc, pi, pj, s=cfg.s, n_false=cfg.n)
+
+    def plain():
+        return tuple(ref.pair_scores_torch(vals, p, acc, a, b, s=cfg.s,
+                                           n_false=cfg.n)
+                     for a, b in ((pi, pj), (pj, pi)))
+
+    # (b) kernel against the plain version; (c) two launches bit-equal
+    got, want, again = kernel(), plain(), kernel()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("two launches of the pair rescore differ")
+    # |Δ| / Σ|terms| on every pair, chunk by chunk; Σ|terms| in float64 from
+    # the agreeing items alone (the different-value terms are each ln(1 − s))
+    ln1ms = abs(float(np.log(np.float32(1.0 - cfg.s))))
+    worst_rel, full_gap = 0.0, 0.0
+    for b0 in range(0, n_pairs, RESCORE_CHECK_CHUNK):
+        sl = slice(b0, min(b0 + RESCORE_CHECK_CHUNK, n_pairs))
+        for d, (a, b) in enumerate(((pi, pj), (pj, pi))):
+            vi, vj = vals[a[sl]], vals[b[sl]]
+            shared = (vi >= 0) & (vj >= 0)
+            same = shared & (vi == vj)
+            r, c = same.nonzero(as_tuple=True)
+            ra, rb = a[sl][r], b[sl][r]
+            terms = score_same(p[ra, c].double(), acc[ra].double(),
+                               acc[rb].double(), cfg.s, cfg.n).abs()
+            mag = (torch.zeros(len(vi), dtype=torch.float64, device=dev)
+                   .index_add_(0, r, terms)
+                   + (shared.sum(dim=1) - same.sum(dim=1)).double() * ln1ms)
+            gap = (got[d][sl].double() - want[d][sl].double()).abs()
+            worst_rel = max(worst_rel, float((gap / mag.clamp(min=1e-30)).max()))
+            full_gap = max(full_gap, float(gap.max()))
+    if not worst_rel <= RESCORE_REL_SUM or not math.isfinite(full_gap):
+        raise AssertionError(f"pair rescore: |Δ| / Σ|terms| {worst_rel:.3e} "
+                             f"over {RESCORE_REL_SUM}, or a NaN")
+    log(f"[28] kernel vs plain on all {n_pairs} pairs, both directions: max "
+        f"|Δ| {full_gap:.3e}, max |Δ| / Σ|terms| {worst_rel:.3e} (bar "
+        f"{RESCORE_REL_SUM}); two launches bit-equal")
+    del got, want, again
+    # (d) timing and bounds by bytes
+    n_same = int(sum(int(((vals[pi[b0:b0 + 2000]] == vals[pj[b0:b0 + 2000]])
+                          & (vals[pi[b0:b0 + 2000]] >= 0)).sum())
+                     for b0 in range(0, n_pairs, 2000)))
+    rows = int(torch.unique(torch.cat([pi, pj])).numel())
+    small = n_pairs * (2 * 8 + 2 * 4) + 2 * n_same * 4    # indices, outputs, p
+    bytes_pairs = n_pairs * 2 * D * 4 + small
+    bytes_once = rows * D * 4 + small
+    ms = _time_ms(torch, kernel, 5)
+    dev_ms = _device_ms(torch, kernel, 5)
+    plain_ms = _time_ms(torch, plain, 1)
+    rec = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "bound_ms": bytes_once / HBM_BPS * 1e3, "bound_by": "bytes",
+           "per_pair_rows_ms": bytes_pairs / HBM_BPS * 1e3,
+           "pairs": n_pairs, "rows_touched": rows, "agreeing_items": n_same,
+           "max_abs_err": full_gap, "max_rel_sum_err": worst_rel,
+           "library_ms": None, "launches_by_path":
+               {"bucketed pass (phase 28)": launches}}
+    log(f"[28] {card}: kernel {ms:.4f} ms a call, {dev_ms:.4f} ms on the card "
+        f"alone; plain version {plain_ms:.1f} ms ({plain_ms / ms:.0f}x); "
+        f"bound by bytes {rec['bound_ms']:.4f} ms (each of {rows} rows the "
+        f"list touches read once, {bytes_once / 1e9:.3f} GB; the kernel "
+        f"{dev_ms / rec['bound_ms']:.0f}x above it); each pair's two rows "
+        f"read once would be {rec['per_pair_rows_ms']:.4f} ms "
+        f"({bytes_pairs / 1e9:.2f} GB, {bytes_pairs / dev_ms / 1e6:.0f} GB/s "
+        f"through the kernel, rows shared in L2); {n_same} agreeing "
+        f"pair-items")
+    return rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5349,6 +5485,12 @@ def main() -> int:
                   "falcon": ssm_train["peaks"]["falcon-mamba-7b"]},
                  _model_flops(training["cfg"], TRAIN_BATCH, TRAIN_LEN),
                  {"fwd": fl["ops"], **bt["ops"]})
+
+    # -- 28. the exact pair rescore at a Book-full pass's pair list ----------
+    marks.append(("28", time.perf_counter()))
+    rescore = phase_rescore(torch, np, dev, ops, ref, card)
+    gc.collect()
+    torch.cuda.empty_cache()
     # B4's launches: Llama's prefill and training, hymba's prefill and
     # training, grok's train CLI run, qwen's, musicgen's and phi's prefills
     # and musicgen's decode, gemma's prefill and the three training runs of
@@ -5418,7 +5560,14 @@ def main() -> int:
         "bound_by": fl["bound_by"],
         "library_ms": fl["library_ms"],
         "head_dim_256": fl["head_dim_256"],
-    }, *bwd]}
+    }, *bwd, {
+        "name": "pair_rescore",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/pair_rescore.cu",
+        "replaces": None,
+        **rescore,
+        "launches": sum(rescore["launches_by_path"].values()),
+    }]}
     marks.append(("end", time.perf_counter()))
     log("[end] seconds by phase, in the order run: " + ", ".join(
         f"{a} {t1 - t0:.1f}" for (a, t0), (_, t1) in zip(marks, marks[1:])))

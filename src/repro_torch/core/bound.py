@@ -44,12 +44,12 @@ from repro_torch.core.index import (
 from repro_torch.core.scoring import (
     bucket_score_deltas,
     decide_copying,
-    pair_scores_subset,
     posterior_independence,
     score_same,
 )
 from repro_torch.core.store import CorpusStore
 from repro_torch.core.types import ClaimsDataset, CopyConfig, DetectionResult
+from repro_torch.kernels.ops import pair_scores
 from repro_torch.utils.counters import ComputeCounter
 from repro_torch.utils.device import resolve_device
 
@@ -379,8 +379,9 @@ def bound_detect(
         vals = torch.as_tensor(ds.values, device=dev)
         p = torch.as_tensor(np.asarray(p_claim, np.float32), device=dev)
         acc = torch.as_tensor(ds.accuracy, dtype=torch.float32, device=dev)
-        c_fwd[pi, pj] = pair_scores_subset(vals, p, acc, cfg, pi, pj)
-        c_fwd[pj, pi] = pair_scores_subset(vals, p, acc, cfg, pj, pi)
+        c_ij, c_ji = pair_scores(vals, p, acc, pi, pj, s=cfg.s, n_false=cfg.n)
+        c_fwd[pi, pj] = c_ij
+        c_fwd[pj, pi] = c_ji
         del vals, p, acc
 
     step4 = decide_copying(c_fwd, c_fwd.T, cfg)

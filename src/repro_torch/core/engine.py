@@ -95,7 +95,6 @@ from repro_torch.core.pipeline import (
 )
 from repro_torch.core.sampling import sample_by_cell, sample_by_item, scale_sample
 from repro_torch.core.scoring import (
-    PAIR_BATCH_ELEMENTS,
     bucket_score_deltas,
     decide_copying,
     pairwise_detect,
@@ -112,7 +111,8 @@ from repro_torch.core.shardplan import (
 )
 from repro_torch.core.store import CorpusStore
 from repro_torch.core.types import ClaimsDataset, CopyConfig, DetectionResult
-from repro_torch.kernels.ops import tile_scores
+from repro_torch.kernels.ops import pair_scores, tile_scores
+from repro_torch.kernels.ref import PAIR_BATCH_ELEMENTS
 from repro_torch.runtime.platform import local_devices
 from repro_torch.utils.counters import ComputeCounter
 from repro_torch.utils.device import resolve_device
@@ -1043,8 +1043,10 @@ class DetectionEngine:
             del z
             pi, pj = torch.nonzero(torch.triu(near, 1), as_tuple=True)
             del near
+            rescore_launches0 = pair_scores.launches
             n_rescored = rescore_pairs_exact(
                 *dataset_tensors(ds, ctx.p_claim, dev), cfg, pi, pj, c_fwd)
+            rescore_launches = pair_scores.launches - rescore_launches0
             rescored = None
             if dev.type == "cuda":
                 rescored = torch.cuda.Event()
@@ -1095,6 +1097,7 @@ class DetectionEngine:
             "n_devices": (int(np.prod(opt.mesh_shape)) if opt.mesh_shape
                           else self.mesh().shape["shards"]),
             "rescored_pairs": n_rescored,
+            "rescore_launches": rescore_launches,     # pair_scores kernels
             "chunks": ech.n_chunks,
             "chunk_width": ech.width,
             "chunk_group": ctx.Gc,

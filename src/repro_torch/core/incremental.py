@@ -44,12 +44,12 @@ from repro_torch.core.index import (
 )
 from repro_torch.core.scoring import (
     decide_copying,
-    pair_scores_subset,
     posterior_independence,
     score_same_np,
 )
 from repro_torch.core.store import _nonzero_2d
 from repro_torch.core.types import ClaimsDataset, CopyConfig, DetectionResult
+from repro_torch.kernels.ops import pair_scores
 from repro_torch.utils.counters import ComputeCounter
 from repro_torch.utils.device import resolve_device
 
@@ -106,8 +106,9 @@ def rescore_pairs_exact(
     """
     if len(pi) == 0:
         return 0
-    c_fwd[pi, pj] = pair_scores_subset(vals, p, acc, cfg, pi, pj)
-    c_fwd[pj, pi] = pair_scores_subset(vals, p, acc, cfg, pj, pi)
+    c_ij, c_ji = pair_scores(vals, p, acc, pi, pj, s=cfg.s, n_false=cfg.n)
+    c_fwd[pi, pj] = c_ij
+    c_fwd[pj, pi] = c_ji
     return len(pi)
 
 

@@ -201,43 +201,6 @@ def pairwise_detect(
     )
 
 
-#: Elements (pairs × items) per batch of the exact pair rescore: bounds the
-#: (P, D) temporaries the JAX version materializes in one shot.
-PAIR_BATCH_ELEMENTS = 1 << 25
-
-
-def pair_scores_subset(
-    vals: torch.Tensor,
-    p: torch.Tensor,
-    acc: torch.Tensor,
-    cfg: CopyConfig,
-    pairs_i: torch.Tensor,
-    pairs_j: torch.Tensor,
-) -> torch.Tensor:
-    """Exact C→ for an explicit list of pairs (near-threshold rescoring).
-
-    ``vals`` (S, D) int32, ``p`` (S, D) float32 and ``acc`` (S,) float32 lie
-    on the device the pair lists lie on. The pairs run in batches of at most
-    ``PAIR_BATCH_ELEMENTS`` pair-items. Returns (n_pairs,) C→[i, j].
-    """
-    D = vals.shape[1]
-    out = torch.empty(len(pairs_i), dtype=torch.float32, device=vals.device)
-    ln1ms = _ln_1ms(cfg.s, vals.device)
-    zero = torch.zeros((), dtype=torch.float32, device=vals.device)
-    step = max(1, PAIR_BATCH_ELEMENTS // max(D, 1))
-    for b0 in range(0, len(pairs_i), step):
-        pi = pairs_i[b0: b0 + step]
-        pj = pairs_j[b0: b0 + step]
-        vi, vj = vals[pi], vals[pj]                       # (B, D)
-        shared = (vi >= 0) & (vj >= 0)
-        same = shared & (vi == vj)
-        sc = score_same(p[pi], acc[pi][:, None], acc[pj][:, None],
-                        cfg.s, cfg.n)
-        contrib = torch.where(same, sc, torch.where(shared, ln1ms, zero))
-        out[b0: b0 + step] = contrib.sum(dim=-1)
-    return out
-
-
 __all__ = ["bucket_score_deltas", "decide_copying", "decide_copying_np",
-           "pair_scores_subset", "pairwise_detect", "posterior_independence",
+           "pairwise_detect", "posterior_independence",
            "posterior_independence_np", "score_same", "score_same_np"]

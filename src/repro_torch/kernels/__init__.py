@@ -13,10 +13,12 @@ from repro_torch.kernels.ops import (
     flash_attention_bwd_dq,
     flash_attention_fwd,
     pad_for_copyscore,
+    pair_scores,
     tile_scores,
 )
 
 __all__ = ["FlashAttention", "copyscore", "copyscore_store", "copyscore_tile",
            "copyscore_tile_fused", "flash_attention", "flash_attention_bwd",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
-           "flash_attention_fwd", "pad_for_copyscore", "tile_scores"]
+           "flash_attention_fwd", "pad_for_copyscore", "pair_scores",
+           "tile_scores"]

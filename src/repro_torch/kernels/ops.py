@@ -24,6 +24,12 @@
                            tensor.
 ``pad_for_copyscore``    — host-side padding of buckets and rows to kernel
                            block multiples.
+``pair_scores``          — exact C→[i, j] and C→[j, i] over all items for a
+                           list of source pairs: the exact rescore of every
+                           engine mode. A CPU tensor takes the plain version
+                           (``ref.pair_scores_torch``, once a direction); a
+                           CUDA tensor launches the hand-written kernel
+                           (``csrc/pair_rescore.cu``) or raises.
 
 ``flash_attention_fwd``  — attention forward (o, lse) with causal masking,
                            a sliding window and GQA: a CPU tensor takes the
@@ -61,6 +67,7 @@ have no such branch: no shapes-only run reaches them.
 
 ``tile_scores.launches``, ``copyscore.launches``,
 ``copyscore_tile.launches``, ``copyscore_store.launches``,
+``pair_scores.launches``,
 ``flash_attention_fwd.launches``, ``flash_attention_bwd_dq.launches`` and
 ``flash_attention_bwd_dkv.launches`` count the kernel launches of this
 process (plain integers; a caller resets one to 0 to count a run).
@@ -201,6 +208,100 @@ def copyscore_tile_fused(v_rows, v_cols, p_blk, acc_rows, acc_cols, *,
                 blocks(nout_blk, 1.0), coords, stacks, tile=T, s=s,
                 n_false=n_false)
     return tuple(st[0] for st in stacks)
+
+
+# ---------------------------------------------------------------------------
+# exact pair rescore
+# ---------------------------------------------------------------------------
+
+def _pair_lib() -> ctypes.CDLL:
+    lib = _build.load("pair_rescore")
+    fn = lib.pair_rescore_launch
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong]
+                       + [ctypes.c_int] * 2 + [ctypes.c_float] * 3
+                       + [ctypes.c_void_p])
+        lib.pair_rescore_error_string.restype = ctypes.c_char_p
+        lib.pair_rescore_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _check_pairs(vals, p, acc, pi, pj) -> None:
+    """Raise on any operand the kernel (on a CUDA tensor) or the plain
+    version (on a CPU tensor) does not take."""
+    if vals.dtype != torch.int32 or vals.dim() != 2:
+        raise ValueError(f"vals must be (S, D) int32, got {tuple(vals.shape)} "
+                         f"{vals.dtype}")
+    S = vals.shape[0]
+    if p.dtype != torch.float32 or p.shape != vals.shape:
+        raise ValueError(f"p must be {tuple(vals.shape)} float32, got "
+                         f"{tuple(p.shape)} {p.dtype}")
+    if acc.dtype != torch.float32 or tuple(acc.shape) != (S,):
+        raise ValueError(f"acc must be ({S},) float32, got {tuple(acc.shape)} "
+                         f"{acc.dtype}")
+    for name, t in (("pairs_i", pi), ("pairs_j", pj)):
+        if t.dtype != torch.int64 or t.dim() != 1:
+            raise ValueError(f"{name} must be (P,) int64, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if len(pi) != len(pj):
+        raise ValueError(f"pairs_i has {len(pi)} pairs, pairs_j {len(pj)}")
+    for name, t in (("p", p), ("acc", acc), ("pairs_i", pi), ("pairs_j", pj)):
+        if t.device != vals.device:
+            raise ValueError(f"{name} is on {t.device}, vals on {vals.device}")
+
+
+def pair_scores(vals: torch.Tensor, p: torch.Tensor, acc: torch.Tensor,
+                pairs_i: torch.Tensor, pairs_j: torch.Tensor, *, s: float,
+                n_false: float) -> tuple:
+    """Exact (C→[i, j], C→[j, i]) over all items for each listed pair.
+
+    ``vals`` (S, D) int32 values (-1 where a source provides none), ``p``
+    (S, D) float32 truth probability of each provided value, ``acc`` (S,)
+    float32 accuracies; ``pairs_i`` / ``pairs_j`` (P,) int64 row indices in
+    [0, S). Returns two (P,) float32 tensors. A CPU tensor takes the plain
+    version, once a direction; a CUDA tensor launches the kernel, which
+    scores both directions from one read of each pair's two value rows (a
+    pair outside [0, S) reads nothing and scores NaN there).
+    """
+    _check_pairs(vals, p, acc, pairs_i, pairs_j)
+    dev = vals.device
+    if dev.type == "cpu":
+        return (kref.pair_scores_torch(vals, p, acc, pairs_i, pairs_j, s=s,
+                                       n_false=n_false),
+                kref.pair_scores_torch(vals, p, acc, pairs_j, pairs_i, s=s,
+                                       n_false=n_false))
+    if dev.type != "cuda":
+        raise ValueError(f"pair_scores runs on cpu or cuda, not {dev}")
+    S, D = vals.shape
+    if S > _MAX_ROWS or D > _MAX_ROWS:
+        raise ValueError(f"vals {tuple(vals.shape)}: the kernel takes fewer "
+                         f"than 2**31 rows and items")
+    n_pairs = len(pairs_i)
+    c_ij = torch.empty(n_pairs, dtype=torch.float32, device=dev)
+    c_ji = torch.empty(n_pairs, dtype=torch.float32, device=dev)
+    if n_pairs == 0:
+        return c_ij, c_ji
+    # the kernel reads rows: a strided operand (the pair lists of
+    # torch.nonzero(..., as_tuple=True), a column-sampled dataset's values)
+    # is copied once into rows
+    vals, p, acc = vals.contiguous(), p.contiguous(), acc.contiguous()
+    pi, pj = pairs_i.contiguous(), pairs_j.contiguous()
+    lib = _pair_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.pair_rescore_launch(
+            vals.data_ptr(), p.data_ptr(), acc.data_ptr(),
+            pi.data_ptr(), pj.data_ptr(), c_ij.data_ptr(), c_ji.data_ptr(),
+            n_pairs, S, D, float(s), float(1.0 - s), float(n_false), stream)
+    if code != 0:
+        raise RuntimeError(f"pair_rescore launch failed: "
+                           f"{lib.pair_rescore_error_string(code).decode()}")
+    pair_scores.launches += 1
+    return c_ij, c_ji
+
+
+pair_scores.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -818,4 +919,5 @@ __all__ = ["FLASH_PRODUCTS", "FlashAttention", "copyscore", "copyscore_store",
            "copyscore_tile", "copyscore_tile_fused", "flash_attention",
            "flash_attention_bwd", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dq", "flash_attention_fwd", "flash_counts",
-           "pad_for_copyscore", "tile_scores", "visible_pairs"]
+           "pad_for_copyscore", "pair_scores", "tile_scores",
+           "visible_pairs"]

@@ -154,6 +154,44 @@ def copyscore_torch(v, p_blk, acc, *, s: float, n_false: float, block_e: int,
 
 
 # ---------------------------------------------------------------------------
+# exact pair rescore
+# ---------------------------------------------------------------------------
+
+#: Elements (pairs × items) per batch of ``pair_scores_torch``: bounds the
+#: (P, D) temporaries the JAX version materializes in one shot.
+PAIR_BATCH_ELEMENTS = 1 << 25
+
+
+def pair_scores_torch(vals, p, acc, pairs_i, pairs_j, *, s: float,
+                      n_false: float) -> torch.Tensor:
+    """Exact C→[i, j] for an explicit list of pairs (one direction).
+
+    ``vals`` (S, D) int32, ``p`` (S, D) float32 and ``acc`` (S,) float32 lie
+    on the device the pair lists lie on. The pairs run in batches of at most
+    ``PAIR_BATCH_ELEMENTS`` pair-items. Returns (n_pairs,) C→[i, j].
+    """
+    # imported here: ``core`` imports the kernels, not the other way
+    from repro_torch.core.scoring import _ln_1ms, score_same
+
+    D = vals.shape[1]
+    out = torch.empty(len(pairs_i), dtype=torch.float32, device=vals.device)
+    ln1ms = _ln_1ms(s, vals.device)
+    zero = torch.zeros((), dtype=torch.float32, device=vals.device)
+    step = max(1, PAIR_BATCH_ELEMENTS // max(D, 1))
+    for b0 in range(0, len(pairs_i), step):
+        pi = pairs_i[b0: b0 + step]
+        pj = pairs_j[b0: b0 + step]
+        vi, vj = vals[pi], vals[pj]                       # (B, D)
+        shared = (vi >= 0) & (vj >= 0)
+        same = shared & (vi == vj)
+        sc = score_same(p[pi], acc[pi][:, None], acc[pj][:, None],
+                        s, n_false)
+        contrib = torch.where(same, sc, torch.where(shared, ln1ms, zero))
+        out[b0: b0 + step] = contrib.sum(dim=-1)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # flash attention
 # ---------------------------------------------------------------------------
 
@@ -341,7 +379,8 @@ def flash_attention_bwd_torch(q, k, v, o, lse, do, *, causal=True,
     return dq, dk, dv
 
 
-__all__ = ["NEG_INF", "attention_chunked", "attention_ref",
-           "copyscore_fused_torch", "flash_attention_bwd_dkv_torch",
-           "flash_attention_bwd_dq_torch", "flash_attention_bwd_torch",
-           "flash_attention_fwd_torch", "tile_scores_torch"]
+__all__ = ["NEG_INF", "PAIR_BATCH_ELEMENTS", "attention_chunked",
+           "attention_ref", "copyscore_fused_torch",
+           "flash_attention_bwd_dkv_torch", "flash_attention_bwd_dq_torch",
+           "flash_attention_bwd_torch", "flash_attention_fwd_torch",
+           "pair_scores_torch", "tile_scores_torch"]
